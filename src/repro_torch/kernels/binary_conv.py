@@ -1,0 +1,192 @@
+"""Packed binary 2-D convolution (paper C3-C6): plans and CUDA kernels.
+
+* :func:`make_conv_plan` / :func:`make_bitplane_conv_plan` pack the conv
+  weights per tap along channels (C3) and precompute the zero-padding
+  correction (C5) or the bit-plane rowsum (C4).  Plans are built on the
+  CPU in exact integer arithmetic and moved to the device afterwards.
+* :func:`bitplane_conv2d_packed` (K1, ``csrc/bitplane_conv.cu``) is the
+  first-layer conv over packed bit planes; :func:`binary_conv2d_bn_sign_packed`
+  (K3, ``csrc/conv_bn_sign.cu``) is the packed conv with the C5
+  correction and the fused BN-sign repack.  Both do their im2col inside
+  the kernel; padded taps read the word 0, i.e. all -1.
+
+Each wrapper launches its kernel and takes CUDA tensors only;
+``kernels/ops.py`` routes CPU tensors to the plain versions
+(``kernels/ref.py``).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import binarize as B
+from repro_torch.kernels import _build
+
+
+def conv_geometry(input_hw: tuple[int, int], kh: int, kw: int, stride: int,
+                  padding: str) -> tuple[tuple[int, int], tuple]:
+    """Output spatial size and ((top, bottom), (left, right)) pads.
+
+    XLA's SAME/VALID conventions: the extra pad of an odd total goes
+    bottom/right.
+    """
+    h, w = input_hw
+    if padding == "SAME":
+        out_h = -(-h // stride)
+        out_w = -(-w // stride)
+        pad_h = max((out_h - 1) * stride + kh - h, 0)
+        pad_w = max((out_w - 1) * stride + kw - w, 0)
+        pads = ((pad_h // 2, pad_h - pad_h // 2),
+                (pad_w // 2, pad_w - pad_w // 2))
+    elif padding == "VALID":
+        out_h = (h - kh) // stride + 1
+        out_w = (w - kw) // stride + 1
+        pads = ((0, 0), (0, 0))
+    else:
+        raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
+    if out_h <= 0 or out_w <= 0:
+        raise ValueError(
+            f"conv output would be empty: input {input_hw}, kernel "
+            f"({kh}, {kw}), stride {stride}, {padding} padding")
+    return (out_h, out_w), pads
+
+
+def make_conv_plan(w: torch.Tensor, *, input_hw: tuple[int, int],
+                   stride: int = 1, padding: str = "SAME") -> dict:
+    """Pack conv weights per tap along channels (C3) and precompute the
+    zero-padding correction (C5) for the layer's input size.
+
+    ``w``: (C_out, KH, KW, C_in) latent weights.  The packed kernels count
+    a padded pixel as -1, so the true zero-pad result is
+    ``packed_result + sum over padded taps of sum_c sign(w)``, computed
+    here as a float64 correlation on the CPU (exact for these integers).
+    Every tensor of the plan is on the CPU.
+    """
+    w = w.detach().to("cpu", torch.float32)
+    c_out, kh, kw, c_in = w.shape
+    wsign = B.sign_pm1(w)
+    w_packed = B.pack_bits(wsign.reshape(c_out, kh * kw, c_in)
+                           ).reshape(c_out, -1)
+    (out_h, out_w), pads = conv_geometry(input_hw, kh, kw, stride, padding)
+    h, wdt = input_hw
+    (pt, pb), (pl, pr) = pads
+    pad_mask = F.pad(torch.zeros((1, 1, h, wdt), dtype=torch.float64),
+                     (pl, pr, pt, pb), value=1.0)
+    w_tap_sum = wsign.sum(dim=3).to(torch.float64)[:, None]  # (O, 1, KH, KW)
+    corr = F.conv2d(pad_mask, w_tap_sum, stride=stride)[0]   # (O, OH, OW)
+    return {
+        "w_packed": w_packed, "k_true": kh * kw * c_in,
+        "kh": kh, "kw": kw, "c_in": c_in, "c_out": c_out,
+        "cw": B.packed_width(c_in),
+        "stride": stride, "pads": pads,
+        "in_hw": (h, wdt), "out_hw": (out_h, out_w),
+        "correction": corr.permute(1, 2, 0).round().to(torch.int32)
+                          .contiguous(),
+    }
+
+
+def make_bitplane_conv_plan(w: torch.Tensor, *, input_hw: tuple[int, int],
+                            stride: int = 1, padding: str = "SAME",
+                            nbits: int = 8) -> dict:
+    """Conv plan for the first-layer bit-plane conv (paper C4).
+
+    The all-taps rowsum replaces both the {0,1} -> ±1 plane shift and the
+    pad correction (a zero-padded pixel has every plane bit 0, i.e. -1),
+    so the plan carries a rowsum and no correction.
+    """
+    plan = make_conv_plan(w, input_hw=input_hw, stride=stride,
+                          padding=padding)
+    wsign = B.sign_pm1(w.detach().to("cpu", torch.float32))
+    plan["rowsum"] = wsign.sum(dim=(1, 2, 3)).to(torch.int32)
+    del plan["correction"]
+    plan["nbits"] = nbits
+    return plan
+
+
+def _check_geometry(h: int, w: int, kh: int, kw: int, stride: int, pads,
+                    out_hw) -> None:
+    (pt, pb), (pl, pr) = pads
+    want = ((h + pt + pb - kh) // stride + 1, (w + pl + pr - kw) // stride + 1)
+    if tuple(out_hw) != want:
+        raise ValueError(f"out_hw {tuple(out_hw)} does not match input "
+                         f"({h}, {w}), kernel ({kh}, {kw}), stride {stride}, "
+                         f"pads {pads}: expected {want}")
+
+
+def bitplane_conv2d_packed(x_planes: torch.Tensor, w_packed: torch.Tensor,
+                           rowsum: torch.Tensor, *, kh: int, kw: int,
+                           stride: int, pads, out_hw: tuple[int, int],
+                           c_out: int, k_true: int,
+                           nbits: int) -> torch.Tensor:
+    """K1: first-layer fixed-precision conv (paper C4) in one launch.
+
+    ``x_planes``: (nbits, B, H, W, Cw) packed bit planes
+    (``binarize.pack_bitplanes_uint8``), ``w_packed``: (C_out, KH*KW*Cw),
+    ``rowsum``: (C_out,) int32.  Returns (B, OH, OW, C_out) int32, the
+    exact integer conv of the raw input against sign(W) with zero padding.
+    Adds one to ``bitplane_conv2d_packed.launches`` per kernel launch.
+    """
+    dev = _build.cuda_device(x_planes, "x_planes")
+    nb, bsz, h, w, cw = x_planes.shape
+    if nb != nbits:
+        raise ValueError(f"x_planes holds {nb} planes, plan says {nbits}")
+    _check_geometry(h, w, kh, kw, stride, pads, out_hw)
+    oh, ow = out_hw
+    out = torch.empty((bsz, oh, ow, c_out), dtype=torch.int32, device=dev)
+    lib = _build.load("bitplane_conv", {"bitplane_conv": "pppp" + "i" * 14
+                                        + "p"})
+    err = lib.bitplane_conv(
+        _build.require(x_planes, "x_planes", torch.int32,
+                       x_planes.shape, dev),
+        _build.require(w_packed, "w_packed", torch.int32,
+                       (c_out, kh * kw * cw), dev),
+        _build.require(rowsum, "rowsum", torch.int32, (c_out,), dev),
+        out.data_ptr(), bsz, h, w, cw, c_out, kh, kw, stride, pads[0][0],
+        pads[1][0], oh, ow, k_true, nbits, _build.stream_of(x_planes))
+    _build.check(err, "bitplane_conv")
+    bitplane_conv2d_packed.launches += 1
+    return out
+
+
+bitplane_conv2d_packed.launches = 0
+
+
+def binary_conv2d_bn_sign_packed(x_packed: torch.Tensor,
+                                 w_packed: torch.Tensor,
+                                 correction: torch.Tensor, tau: torch.Tensor,
+                                 flip: torch.Tensor, *, kh: int, kw: int,
+                                 stride: int, pads, out_hw: tuple[int, int],
+                                 c_out: int, k_true: int) -> torch.Tensor:
+    """K3: fused conv + C5 correction + BN-sign fold + re-bitpack.
+
+    ``x_packed``: (B, H, W, Cw) channel-packed words, ``correction``:
+    (OH, OW, C_out) int32, ``tau``/``flip``: (C_out,) f32.  Returns
+    (B, OH, OW, ceil(C_out/32)) words, bit-identical to
+    ``pack_bits(apply_bn_sign_folded(conv_out))``.  Adds one to
+    ``binary_conv2d_bn_sign_packed.launches`` per kernel launch.
+    """
+    dev = _build.cuda_device(x_packed, "x_packed")
+    bsz, h, w, cw = x_packed.shape
+    _check_geometry(h, w, kh, kw, stride, pads, out_hw)
+    oh, ow = out_hw
+    out = torch.empty((bsz, oh, ow, B.packed_width(c_out)),
+                      dtype=torch.int32, device=dev)
+    lib = _build.load("conv_bn_sign", {"conv_bn_sign": "pppppp" + "i" * 13
+                                       + "p"})
+    err = lib.conv_bn_sign(
+        _build.require(x_packed, "x_packed", torch.int32, x_packed.shape,
+                       dev),
+        _build.require(w_packed, "w_packed", torch.int32,
+                       (c_out, kh * kw * cw), dev),
+        _build.require(correction, "correction", torch.int32,
+                       (oh, ow, c_out), dev),
+        _build.require(tau, "tau", torch.float32, (c_out,), dev),
+        _build.require(flip, "flip", torch.float32, (c_out,), dev),
+        out.data_ptr(), bsz, h, w, cw, c_out, kh, kw, stride, pads[0][0],
+        pads[1][0], oh, ow, k_true, _build.stream_of(x_packed))
+    _build.check(err, "conv_bn_sign")
+    binary_conv2d_bn_sign_packed.launches += 1
+    return out
+
+
+binary_conv2d_bn_sign_packed.launches = 0

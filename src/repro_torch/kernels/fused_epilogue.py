@@ -1,0 +1,54 @@
+"""Fused BN-sign-fold + re-bitpack epilogue, and its CUDA kernel (K2).
+
+Between binary layers the inference path turns an int32 layer output
+into the next layer's packed words: sign(BN(y)) == flip * sign(y - tau)
+(``core.binary_layers.fold_bn_sign``), so one compare per element and a
+pack.  :func:`bn_sign_pack` runs it as one kernel after the bit-plane
+first layer; the conv and GEMM kernels inline the same epilogue.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import binarize as B
+from repro_torch.kernels import _build
+
+
+def bn_sign_bits_to_words(y: torch.Tensor, tau: torch.Tensor,
+                          flip: torch.Tensor) -> torch.Tensor:
+    """The epilogue contract shared by every kernel that inlines it.
+
+    bit = (f32(y) >= tau) XNOR (flip > 0), packed LSB-first along the last
+    axis.  ``y``: (..., c), ``tau``/``flip``: (c,).  A ragged last word
+    gets zero bits, which is what the reference's padding of tau with +inf
+    and flip with +1 gives; the kernels mask those lanes instead of
+    padding the parameters.
+    """
+    ge = y.to(torch.float32) >= tau
+    return B.pack_bool_bits(ge == (flip > 0))
+
+
+def bn_sign_pack(x: torch.Tensor, tau: torch.Tensor,
+                 flip: torch.Tensor) -> torch.Tensor:
+    """K2: fused sign(BN(x)) + bit-pack, (M, C) int32 -> (M, ceil(C/32))
+    int32 words.
+
+    Launches ``csrc/bn_sign_pack.cu`` on CUDA tensors and adds one to
+    ``bn_sign_pack.launches``; its plain version is
+    :func:`bn_sign_bits_to_words`.
+    """
+    m, c = x.shape
+    dev = _build.cuda_device(x, "x")
+    out = torch.empty((m, B.packed_width(c)), dtype=torch.int32, device=dev)
+    lib = _build.load("bn_sign_pack", {"bn_sign_pack": "ppppiip"})
+    err = lib.bn_sign_pack(
+        _build.require(x, "x", torch.int32, (m, c), dev),
+        _build.require(tau, "tau", torch.float32, (c,), dev),
+        _build.require(flip, "flip", torch.float32, (c,), dev),
+        out.data_ptr(), m, c, _build.stream_of(x))
+    _build.check(err, "bn_sign_pack")
+    bn_sign_pack.launches += 1
+    return out
+
+
+bn_sign_pack.launches = 0

@@ -1,0 +1,141 @@
+"""Backend dispatchers for the packed kernels.
+
+Shared argument semantics (every dispatcher in this module):
+
+* ``backend``: ``'cuda'`` (the hand-written kernels), ``'torch'`` (the
+  plain PyTorch versions in ``ref.py``, on whatever device the tensors
+  are) or ``'auto'`` (``'cuda'`` for a CUDA tensor, ``'torch'`` for a CPU
+  tensor).  ``'cuda'`` on a CPU tensor raises, and any other string
+  raises ``ValueError`` (see :func:`_resolve`).  Nothing falls back from
+  one backend to the other when a build or a launch fails.
+* Packed words are ``torch.int32`` tensors with the bit pattern of the
+  reference's ``uint32`` words.  The launch geometry stays inside the
+  kernel wrappers; there are no block knobs.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import binarize as B
+from repro_torch.kernels import binary_conv as _bconv
+from repro_torch.kernels import binary_matmul as _bmm
+from repro_torch.kernels import fused_epilogue as _fe
+from repro_torch.kernels import ref as _ref
+
+# Every kernel wrapper of the package by kernel name; each keeps an
+# integer ``launches`` count of its own kernel launches.
+KERNELS = {
+    "bitplane_conv": _bconv.bitplane_conv2d_packed,
+    "bn_sign_pack": _fe.bn_sign_pack,
+    "conv_bn_sign": _bconv.binary_conv2d_bn_sign_packed,
+    "xnor_gemm": _bmm.binary_matmul_packed,
+    "xnor_gemm_bn_sign": _bmm.binary_matmul_bn_sign_packed,
+}
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches since the last :func:`reset_launch_counts`."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def _resolve(backend: str, x: torch.Tensor) -> str:
+    """Single point of backend resolution for every dispatcher."""
+    if backend == "auto":
+        return "cuda" if x.is_cuda else "torch"
+    if backend == "cuda":
+        if not x.is_cuda:
+            raise ValueError(f"backend 'cuda' needs CUDA tensors, got a "
+                             f"tensor on {x.device}")
+        return backend
+    if backend != "torch":
+        raise ValueError(f"unknown backend {backend!r}")
+    return backend
+
+
+def binary_matmul_packed(a_packed: torch.Tensor, b_packed: torch.Tensor, *,
+                         k_true: int, backend: str = "auto") -> torch.Tensor:
+    """Binary GEMM on pre-packed operands: (M, Kw) x (N, Kw) -> (M, N)
+    int32; ``k_true`` is the logical K before packing."""
+    if _resolve(backend, a_packed) == "cuda":
+        return _bmm.binary_matmul_packed(a_packed, b_packed, k_true=k_true)
+    return _ref.binary_matmul_packed_ref(a_packed, b_packed, k_true)
+
+
+def binary_matmul_bn_sign_packed(a_packed: torch.Tensor,
+                                 b_packed: torch.Tensor, tau: torch.Tensor,
+                                 flip: torch.Tensor, *, k_true: int,
+                                 backend: str = "auto") -> torch.Tensor:
+    """Fused packed GEMM + BN-sign fold + re-bitpack: (M, ceil(N/32))
+    words, bit-identical to ``bn_sign_pack(binary_matmul_packed(...))``."""
+    if _resolve(backend, a_packed) == "cuda":
+        return _bmm.binary_matmul_bn_sign_packed(a_packed, b_packed, tau,
+                                                 flip, k_true=k_true)
+    return _ref.binary_matmul_bn_sign_packed_ref(a_packed, b_packed, tau,
+                                                 flip, k_true)
+
+
+def binary_dense_stack_packed(stages: list, x_packed: torch.Tensor, *,
+                              backend: str = "auto") -> torch.Tensor:
+    """A chain of hidden dense layers, each one fused GEMM + BN-sign +
+    re-bitpack launch (the reference's per-layer form of the stack).
+
+    ``stages``: list of ``{"w_packed", "k_true", "tau", "flip"}``.  An
+    empty list is the identity.
+    """
+    h = x_packed
+    for s in stages:
+        h = binary_matmul_bn_sign_packed(h, s["w_packed"], s["tau"],
+                                         s["flip"], k_true=s["k_true"],
+                                         backend=backend)
+    return h
+
+
+def bn_sign_pack(x: torch.Tensor, tau: torch.Tensor, flip: torch.Tensor, *,
+                 backend: str = "auto") -> torch.Tensor:
+    """Fused sign(BN(x)) + bit-pack along the last axis: (..., C) int32 ->
+    (..., ceil(C/32)) words."""
+    if _resolve(backend, x) == "torch":
+        return _ref.bn_sign_pack_ref(x, tau, flip)
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    out = _fe.bn_sign_pack(x2, tau, flip)
+    return out.reshape(*x.shape[:-1], out.shape[-1])
+
+
+def binary_conv2d_bn_sign_packed(plan: dict, folded: dict,
+                                 x_packed: torch.Tensor, *,
+                                 backend: str = "auto") -> torch.Tensor:
+    """Fused conv + BN-sign fold + re-bitpack on a ``make_conv_plan`` plan:
+    (B, H, W, Cw) words -> (B, OH, OW, ceil(C_out/32)) words."""
+    geom = dict(kh=plan["kh"], kw=plan["kw"], stride=plan["stride"],
+                pads=plan["pads"], c_out=plan["c_out"],
+                k_true=plan["k_true"])
+    if _resolve(backend, x_packed) == "torch":
+        return _ref.binary_conv2d_bn_sign_packed_ref(
+            x_packed, plan["w_packed"], plan["correction"], folded["tau"],
+            folded["flip"], **geom)
+    return _bconv.binary_conv2d_bn_sign_packed(
+        x_packed.contiguous(), plan["w_packed"], plan["correction"],
+        folded["tau"], folded["flip"], out_hw=plan["out_hw"], **geom)
+
+
+def bitplane_conv2d_packed(plan: dict, x_uint8: torch.Tensor, *,
+                           backend: str = "auto") -> torch.Tensor:
+    """First-layer fixed-precision conv (paper C4) on a
+    ``make_bitplane_conv_plan`` plan: raw (B, H, W, C_in) uint8 ->
+    (B, OH, OW, C_out) int32.  The bit planes are packed with plain tensor
+    ops and the conv is one kernel launch."""
+    geom = dict(kh=plan["kh"], kw=plan["kw"], stride=plan["stride"],
+                pads=plan["pads"], c_out=plan["c_out"],
+                k_true=plan["k_true"], nbits=plan["nbits"])
+    if _resolve(backend, x_uint8) == "torch":
+        return _ref.bitplane_conv2d_packed_ref(
+            x_uint8, plan["w_packed"], plan["rowsum"], **geom)
+    x_planes = B.pack_bitplanes_uint8(x_uint8, plan["nbits"])
+    return _bconv.bitplane_conv2d_packed(
+        x_planes, plan["w_packed"], plan["rowsum"], out_hw=plan["out_hw"],
+        **geom)

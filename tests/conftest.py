@@ -4,3 +4,9 @@
 import jax
 
 jax.config.update("jax_platform_name", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips (inside a fixture) "
+        "where there is none")

@@ -1,0 +1,124 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+    python -m pytest -m cuda tests/test_torch_cuda.py     # on the card
+
+Every test here needs a CUDA card and skips without one; the check runs
+inside the fixture, never at import time.
+"""
+import pytest
+import torch
+
+from repro_torch.core import binarize as B
+from repro_torch.kernels import binary_conv as bconv
+from repro_torch.kernels import binary_matmul as bmm
+from repro_torch.kernels import fused_epilogue as fe
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref
+from repro_torch.models import cnn
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+def _pm1(gen, *shape):
+    return torch.rand(shape, generator=gen) * 2 - 1
+
+
+def _bn(gen, c, k, dev):
+    tau = torch.randint(-k, k + 1, (c,), generator=gen).float()
+    tau += 0.5 * (torch.rand(c, generator=gen) < 0.5)
+    flip = torch.where(torch.rand(c, generator=gen) < 0.3, -1.0, 1.0)
+    return tau.to(dev), flip.to(dev)
+
+
+@pytest.mark.parametrize("m,c", [(1, 40), (37, 10), (2048, 128)])
+def test_bn_sign_pack_kernel(dev, m, c):
+    gen = torch.Generator().manual_seed(m + c)
+    x = torch.randint(-99, 99, (m, c), generator=gen,
+                      dtype=torch.int32).to(dev)
+    tau, flip = _bn(gen, c, 99, dev)
+    assert torch.equal(fe.bn_sign_pack(x, tau, flip),
+                       ref.bn_sign_pack_ref(x, tau, flip))
+
+
+@pytest.mark.parametrize("m,n,k", [(1, 10, 1024), (3, 40, 70),
+                                   (256, 1024, 8192)])
+def test_xnor_gemm_kernels(dev, m, n, k):
+    gen = torch.Generator().manual_seed(m + n + k)
+    a = B.pack_bits(_pm1(gen, m, k)).to(dev)
+    w = B.pack_bits(_pm1(gen, n, k)).to(dev)
+    tau, flip = _bn(gen, n, k, dev)
+    assert torch.equal(bmm.binary_matmul_packed(a, w, k_true=k),
+                       ref.binary_matmul_packed_ref(a, w, k))
+    assert torch.equal(
+        bmm.binary_matmul_bn_sign_packed(a, w, tau, flip, k_true=k),
+        ref.binary_matmul_bn_sign_packed_ref(a, w, tau, flip, k))
+
+
+@pytest.mark.parametrize("hw,c_in,c_out,stride,padding", [
+    ((32, 32), 128, 128, 1, "SAME"), ((9, 9), 33, 40, 2, "VALID"),
+    ((7, 7), 20, 10, 2, "SAME")])
+def test_conv_kernels(dev, hw, c_in, c_out, stride, padding):
+    gen = torch.Generator().manual_seed(c_in + c_out + stride)
+    plan = bconv.make_conv_plan(_pm1(gen, c_out, 3, 3, c_in), input_hw=hw,
+                                stride=stride, padding=padding)
+    geom = dict(kh=3, kw=3, stride=stride, pads=plan["pads"], c_out=c_out,
+                k_true=plan["k_true"])
+    x = B.pack_bits(_pm1(gen, 2, *hw, c_in)).to(dev)
+    tau, flip = _bn(gen, c_out, plan["k_true"], dev)
+    args = (x, plan["w_packed"].to(dev), plan["correction"].to(dev), tau,
+            flip)
+    assert torch.equal(
+        bconv.binary_conv2d_bn_sign_packed(*args, out_hw=plan["out_hw"],
+                                           **geom),
+        ref.binary_conv2d_bn_sign_packed_ref(*args, **geom))
+    bplan = bconv.make_bitplane_conv_plan(_pm1(gen, c_out, 3, 3, 3),
+                                          input_hw=hw, stride=stride,
+                                          padding=padding)
+    planes = B.pack_bitplanes_uint8(torch.randint(
+        0, 256, (2, *hw, 3), generator=gen, dtype=torch.uint8).to(dev))
+    bargs = (planes, bplan["w_packed"].to(dev), bplan["rowsum"].to(dev))
+    geom["k_true"] = bplan["k_true"]
+    assert torch.equal(
+        bconv.bitplane_conv2d_packed(*bargs, out_hw=bplan["out_hw"],
+                                     nbits=8, **geom),
+        ref.bitplane_conv2d_planes_ref(*bargs, nbits=8, **geom))
+
+
+def test_wrappers_reject_what_they_do_not_take(dev):
+    a = torch.zeros((4, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        bmm.binary_matmul_packed(a.float(), a, k_true=256)
+    with pytest.raises(ValueError, match="shape"):
+        bmm.binary_matmul_packed(a, a[:, :4], k_true=256)
+    with pytest.raises(ValueError, match="contiguous"):
+        bmm.binary_matmul_packed(a[:, ::2], a[:, :4].contiguous(),
+                                 k_true=128)
+    with pytest.raises(ValueError, match="on cpu"):
+        bmm.binary_matmul_packed(a, a.cpu(), k_true=256)
+
+
+def test_forward_launch_counts_and_parity(dev):
+    spec = cnn.BCNNSpec(input_hw=(16, 16),
+                        stages=(cnn.ConvStage(64), cnn.ConvStage(64, True),
+                                cnn.ConvStage(96, True)),
+                        dense=(128, 40, 10))
+    gen = torch.Generator().manual_seed(0)
+    packed = cnn.pack_bcnn(cnn.init_bcnn(gen, spec), spec)
+    fwd = cnn.make_packed_forward(packed)
+    x = torch.randint(0, 256, (5, 16, 16, 3), generator=gen,
+                      dtype=torch.uint8)
+    ops.reset_launch_counts()
+    got = fwd(x)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"bitplane_conv": 1, "bn_sign_pack": 1,
+                                   "conv_bn_sign": 2, "xnor_gemm": 1,
+                                   "xnor_gemm_bn_sign": 2}
+    want = cnn.bcnn_forward_packed(packed, x.to(dev), backend="torch")
+    assert torch.equal(got, want)
