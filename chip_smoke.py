@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the port's packed BCNN forward on one CUDA card and check it.
+"""Drive the port's packed forwards on one CUDA card and check them.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -9,15 +9,24 @@ Phases, each printing its lines:
 2. build: every CUDA kernel of ``src/repro_torch/csrc``, one ``nvcc``
    per source in parallel, with the ptxas register/shared-memory report;
 3. kernels: each kernel against its plain PyTorch version on the card,
-   bit-exact, at the full-width BCNN shapes (batch 8) and on ragged cases;
-4. main path: the paper's ``BCNNSpec()`` with random weights and BN from
-   seed 0, packed on the card and served through ``make_packed_forward``
-   at batches 1, 8, 64 and 256; launch counts per forward; int32 pre-BN
-   outputs and logits against the plain path; logits against the float
-   reference at batch 8;
-5. times (CUDA events): every kernel at batches 1 and 256 beside its
-   plain version, its bound and a library call, and the forward per
-   batch, fed from host memory as a request arrives and from the card.
+   bit-exact, at the full-width shapes of every path (batch 8), at the
+   layer entry points' shapes and on ragged cases;
+4. main paths, each driven with the launch counts set to 0 just before
+   it and read just after:
+   - the paper's ``BCNNSpec()`` and ``BMLPSpec()`` with random weights
+     and BN from seed 0, packed on the card and served through
+     ``make_packed_forward`` at batches 1, 8, 64 and 256, with
+     ``dense_stack`` 'auto' (the single-launch stack) and 'per_layer';
+     int32 pre-BN outputs and logits against the plain path, logits
+     against the float reference at batch 8;
+   - the layer entry points at the paper's shapes: ``ops.binary_matmul``
+     on 8192x8192 operands (Table 1) and ``ops.binary_conv2d`` on the
+     Table-3 layer (16x16, 128 -> 256 channels, 3x3 SAME) at batch 1
+     and 256, against ``torch.matmul`` / ``F.conv2d`` on the ±1 tensors;
+5. times (CUDA events): every kernel of each path at batches 1 and 256
+   beside its plain version, its bound and a library call, and each
+   forward per batch and mode, fed from host memory as a request arrives
+   and from the card.
 
 The line before the last is the JSON list of kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
@@ -42,18 +51,31 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate
 # capability 9.0.  XOR and ADD (64 per clock) never bind before it.
 POPC_PER_CLOCK_PER_SM = 16
 
+# kernel -> (source, the Pallas body it replaces, the path whose batch-256
+# numbers go into the kernels line)
 SOURCES = {
     "bitplane_conv": ("src/repro_torch/csrc/bitplane_conv.cu",
-                      "src/repro/kernels/binary_conv.py:277"),
+                      "src/repro/kernels/binary_conv.py:277", "bcnn auto"),
     "bn_sign_pack": ("src/repro_torch/csrc/bn_sign_pack.cu",
-                     "src/repro/kernels/fused_epilogue.py:96"),
+                     "src/repro/kernels/fused_epilogue.py:96", "bcnn auto"),
     "conv_bn_sign": ("src/repro_torch/csrc/conv_bn_sign.cu",
-                     "src/repro/kernels/binary_conv.py:257"),
+                     "src/repro/kernels/binary_conv.py:257", "bcnn auto"),
     "xnor_gemm": ("src/repro_torch/csrc/xnor_gemm.cu",
-                  "src/repro/kernels/binary_matmul.py:120"),
+                  "src/repro/kernels/binary_matmul.py:120", "bcnn auto"),
     "xnor_gemm_bn_sign": ("src/repro_torch/csrc/xnor_gemm.cu",
-                          "src/repro/kernels/binary_matmul.py:137"),
+                          "src/repro/kernels/binary_matmul.py:137",
+                          "bcnn per_layer"),
+    "bitpack": ("src/repro_torch/csrc/bitpack.cu",
+                "src/repro/kernels/bitpack.py:26", "bmlp auto"),
+    "dense_stack": ("src/repro_torch/csrc/dense_stack.cu",
+                    "src/repro/kernels/binary_matmul.py:169", "bmlp auto"),
+    "binary_conv": ("src/repro_torch/csrc/conv_bn_sign.cu",
+                    "src/repro/kernels/binary_conv.py:249", "binary_conv2d"),
 }
+MODES = ("auto", "per_layer")
+BATCHES = (1, 8, 64, 256)
+MATMUL_SIZE = 8192                       # Table 1: 8192x8192 operands
+TABLE3_LAYER = dict(hw=(16, 16), c_in=128, c_out=256)
 
 
 def log(*parts) -> None:
@@ -61,8 +83,8 @@ def log(*parts) -> None:
 
 
 class Call:
-    """One kernel call of the main path: the kernel, its plain version on
-    the same inputs, the work it must do and an optional library call.
+    """One kernel call of a path: the kernel, its plain version on the
+    same inputs, the work it must do and an optional library call.
 
     ``library_as`` maps the library call's output onto the kernel's, where
     the library computes the kernel's whole function; it is None where
@@ -79,17 +101,96 @@ def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def main_path_calls(packed, x):
-    """Walk the packed forward stage by stage with the plain versions and
-    return every kernel call it makes, in order, on the inputs the main
+def bitpack_call(x):
+    """K5 on float32 (M, K); no single library call packs bits."""
+    from repro_torch.core import binarize as B
+    from repro_torch.kernels import bitpack as bp
+    from repro_torch.kernels import ref
+    m, k = x.shape
+    return Call("bitpack", functools.partial(bp.bitpack, x),
+                functools.partial(ref.bitpack_ref, x),
+                _nbytes(x) + m * B.packed_width(k) * 4, 0)
+
+
+def gemm_call(h, w, k):
+    """K4 with the int32 epilogue.  Library: the ±1 float32 GEMM (TF32
+    off); every dot is an integer below 2^24, so it is exact and computes
+    the kernel's function."""
+    import torch
+    from repro_torch.core import binarize as B
+    from repro_torch.kernels import binary_matmul as bmm
+    from repro_torch.kernels import ref
+    return Call("xnor_gemm",
+                functools.partial(bmm.binary_matmul_packed, h, w, k_true=k),
+                functools.partial(ref.binary_matmul_packed_ref, h, w, k),
+                _nbytes(h, w) + h.shape[0] * w.shape[0] * 4,
+                h.shape[0] * w.shape[0] * w.shape[1],
+                functools.partial(torch.matmul, B.unpack_bits(h, k),
+                                  B.unpack_bits(w, k).T),
+                lambda y: y.round().to(torch.int32))
+
+
+def hidden_stack_calls(h, layers, foldeds, dense_stack):
+    """The hidden dense stack as the forward runs it: one K6 launch
+    ('auto', which the residency rule resolves to it here) or one fused K4
+    per layer ('per_layer').  Returns the calls and the stack's output."""
+    import torch
+    from repro_torch.core import binarize as B
+    from repro_torch.kernels import binary_matmul as bmm
+    from repro_torch.kernels import ref
+    bsz = h.shape[0]
+    stages = [{"w_packed": p["w_packed"], "k_true": p["k_true"],
+               "tau": f["tau"], "flip": f["flip"]}
+              for p, f in zip(layers, foldeds)]
+    weights = [s["w_packed"] for s in stages]
+    if dense_stack == "auto":
+        if not bmm.dense_stack_fits(weights):
+            raise AssertionError("the residency rule no longer takes this "
+                                 "stack: 'auto' would not run K6")
+        taus = [s["tau"] for s in stages]
+        flips = [s["flip"] for s in stages]
+        n_last = weights[-1].shape[0]
+        call = Call(
+            "dense_stack",
+            functools.partial(bmm.binary_dense_stack_packed, h, weights,
+                              taus, flips,
+                              k_trues=[s["k_true"] for s in stages]),
+            functools.partial(ref.binary_dense_stack_packed_ref, stages, h),
+            _nbytes(h, *weights, *taus, *flips)
+            + bsz * B.packed_width(n_last) * 4,
+            sum(bsz * w.shape[0] * w.shape[1] for w in weights))
+        return [call], call.plain()
+    calls = []
+    for s in stages:
+        w, k = s["w_packed"], s["k_true"]
+        library = None
+        if bsz > 16 and w.shape[0] % 8 == 0:
+            # the +-1 int8 tensor-core route, contraction only
+            library = functools.partial(
+                torch._int_mm, B.unpack_bits(h, k, torch.int8),
+                B.unpack_bits(w, k, torch.int8).T)
+        args = (h, w, s["tau"], s["flip"])
+        calls.append(Call(
+            "xnor_gemm_bn_sign",
+            functools.partial(bmm.binary_matmul_bn_sign_packed, *args,
+                              k_true=k),
+            functools.partial(ref.binary_matmul_bn_sign_packed_ref, *args,
+                              k),
+            _nbytes(*args) + bsz * B.packed_width(w.shape[0]) * 4,
+            bsz * w.shape[0] * w.shape[1], library))
+        h = calls[-1].plain()
+    return calls, h
+
+
+def bcnn_calls(packed, x, dense_stack):
+    """Walk the packed BCNN forward stage by stage with the plain versions
+    and return every kernel call it makes, in order, on the inputs the
     path gives it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core import binarize as B
     from repro_torch.core import binary_layers as L
     from repro_torch.kernels import binary_conv as bconv
-    from repro_torch.kernels import binary_matmul as bmm
-    from repro_torch.kernels import fused_epilogue as fe
     from repro_torch.kernels import ref
 
     spec = packed["spec"]
@@ -103,10 +204,6 @@ def main_path_calls(packed, x):
     oh, ow = pc["out_hw"]
     out_bytes = bsz * oh * ow * pc["c_out"] * 4
     xf = x.permute(0, 3, 1, 2).float()
-    wf = B.unpack_bits(pc["w_packed"].reshape(pc["c_out"], pc["kh"] * pc["kw"],
-                                              pc["cw"]), pc["c_in"])
-    wf = wf.reshape(pc["c_out"], pc["kh"], pc["kw"], pc["c_in"]).permute(
-        0, 3, 1, 2).contiguous()
     (pt, pb), (pl, pr) = pc["pads"]
     calls.append(Call(
         "bitplane_conv",
@@ -119,20 +216,15 @@ def main_path_calls(packed, x):
         _nbytes(planes, pc["w_packed"], pc["rowsum"]) + out_bytes,
         bsz * oh * ow * pc["c_out"] * pc["kh"] * pc["kw"] * pc["cw"]
         * pc["nbits"],
-        functools.partial(F.conv2d, F.pad(xf, (pl, pr, pt, pb)), wf,
-                          stride=pc["stride"]),
+        functools.partial(F.conv2d, F.pad(xf, (pl, pr, pt, pb)),
+                          unpacked_conv_weights(pc), stride=pc["stride"]),
         lambda y: y.permute(0, 2, 3, 1).round().to(torch.int32)))
     z = calls[-1].plain()
     if spec.stages[0].pool:
         z = L.maxpool2d(z)
     z2 = z.reshape(-1, z.shape[-1]).contiguous()
     fc = packed["folded_conv"][0]
-    calls.append(Call(
-        "bn_sign_pack",
-        functools.partial(fe.bn_sign_pack, z2, fc["tau"], fc["flip"]),
-        functools.partial(ref.bn_sign_pack_ref, z2, fc["tau"], fc["flip"]),
-        _nbytes(z2, fc["tau"], fc["flip"])
-        + z2.shape[0] * B.packed_width(z2.shape[1]) * 4, 0))
+    calls.append(bn_sign_pack_call(z2, fc))
     hp = calls[-1].plain().reshape(*z.shape[:-1], -1)
 
     for i in range(1, len(packed["convs"])):
@@ -155,38 +247,95 @@ def main_path_calls(packed, x):
 
     h = hp.reshape(bsz, -1).contiguous()
     n = len(packed["denses"])
-    for i, layer in enumerate(packed["denses"]):
-        w, k = layer["w_packed"], layer["k_true"]
-        if i < n - 1:
-            library = None
-            if bsz > 16 and w.shape[0] % 8 == 0:
-                # the +-1 int8 tensor-core route, contraction only
-                library = functools.partial(
-                    torch._int_mm, B.unpack_bits(h, k, torch.int8),
-                    B.unpack_bits(w, k, torch.int8).T)
-            fd = packed["folded_dense"][i]
-            args = (h, w, fd["tau"], fd["flip"])
-            calls.append(Call(
-                "xnor_gemm_bn_sign",
-                functools.partial(bmm.binary_matmul_bn_sign_packed, *args,
-                                  k_true=layer["k_true"]),
-                functools.partial(ref.binary_matmul_bn_sign_packed_ref,
-                                  *args, layer["k_true"]),
-                _nbytes(*args) + bsz * B.packed_width(w.shape[0]) * 4,
-                bsz * w.shape[0] * w.shape[1], library))
-            h = calls[-1].plain()
-        else:
-            # +-1 float32 GEMM (TF32 off): every dot is an integer below
-            # 2^24, so it is exact and computes the kernel's function
-            calls.append(Call(
-                "xnor_gemm",
-                functools.partial(bmm.binary_matmul_packed, h, w, k_true=k),
-                functools.partial(ref.binary_matmul_packed_ref, h, w, k),
-                _nbytes(h, w) + bsz * w.shape[0] * 4,
-                bsz * w.shape[0] * w.shape[1],
-                functools.partial(torch.matmul, B.unpack_bits(h, k),
-                                  B.unpack_bits(w, k).T),
-                lambda y: y.round().to(torch.int32)))
+    stack, h = hidden_stack_calls(h, packed["denses"][:n - 1],
+                                  packed["folded_dense"], dense_stack)
+    out = packed["denses"][n - 1]
+    return calls + stack + [gemm_call(h, out["w_packed"], out["k_true"])]
+
+
+def unpacked_conv_weights(plan):
+    """The ±1 float32 (C_out, C_in, KH, KW) weights of a conv plan."""
+    from repro_torch.core import binarize as B
+    c_out, kh, kw = plan["c_out"], plan["kh"], plan["kw"]
+    wf = B.unpack_bits(plan["w_packed"].reshape(c_out, kh * kw, plan["cw"]),
+                       plan["c_in"])
+    return wf.reshape(c_out, kh, kw, plan["c_in"]).permute(
+        0, 3, 1, 2).contiguous()
+
+
+def bn_sign_pack_call(z2, folded):
+    from repro_torch.core import binarize as B
+    from repro_torch.kernels import fused_epilogue as fe
+    from repro_torch.kernels import ref
+    args = (z2, folded["tau"], folded["flip"])
+    return Call("bn_sign_pack", functools.partial(fe.bn_sign_pack, *args),
+                functools.partial(ref.bn_sign_pack_ref, *args),
+                _nbytes(*args) + z2.shape[0] * B.packed_width(z2.shape[1])
+                * 4, 0)
+
+
+def bmlp_calls(packed, x, dense_stack):
+    """The BMLP forward's kernel calls, in order: the stacked bit planes
+    (one bitpack, one K4), K2, the hidden stack, the output K4."""
+    import torch
+    from repro_torch.core import binarize as B
+    from repro_torch.core import binary_layers as L
+
+    l0 = packed["layers"][0]
+    nbits, bsz = l0["nbits"], x.shape[0]
+    planes = (2 * B.bitplanes_uint8(x, nbits) - 1).to(torch.float32)
+    planes = planes.reshape(nbits * bsz, -1)
+    calls = [bitpack_call(planes)]
+    calls.append(gemm_call(calls[-1].plain(), l0["w_packed"], l0["k_true"]))
+    z = L.apply_bitplane_dense_packed(l0, x, backend="torch")
+    calls.append(bn_sign_pack_call(z, packed["folded"][0]))
+    layers = packed["layers"]
+    stack, h = hidden_stack_calls(calls[-1].plain(), layers[1:-1],
+                                  packed["folded"][1:], dense_stack)
+    return calls + stack + [gemm_call(h, layers[-1]["w_packed"],
+                                      layers[-1]["k_true"])]
+
+
+def matmul_calls(a, b):
+    """``ops.binary_matmul`` (Table 1): bitpack both operands, then K4."""
+    calls = [bitpack_call(a), bitpack_call(b)]
+    return calls + [gemm_call(calls[0].plain(), calls[1].plain(),
+                              a.shape[1])]
+
+
+def conv_calls(x, w):
+    """``ops.binary_conv2d`` (the Table-3 layer): bitpack the channels,
+    then K7.  Library: ``F.conv2d`` on the ±1 tensors (float32, TF32 off,
+    zero padding), the same function."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import binarize as B
+    from repro_torch.kernels import binary_conv as bconv
+    from repro_torch.kernels import ref
+    from repro_torch.models import cnn
+    bsz, h, wd, c_in = x.shape
+    plan = cnn.to_device(bconv.make_conv_plan(w, input_hw=(h, wd)),
+                         x.device)
+    calls = [bitpack_call(x.reshape(-1, c_in))]
+    xp = calls[0].plain().reshape(bsz, h, wd, -1)
+    geom = dict(kh=plan["kh"], kw=plan["kw"], stride=plan["stride"],
+                pads=plan["pads"], c_out=plan["c_out"],
+                k_true=plan["k_true"])
+    args = (xp, plan["w_packed"], plan["correction"])
+    oh, ow = plan["out_hw"]
+    (pt, pb), (pl, pr) = plan["pads"]
+    xf = B.sign_pm1(x).permute(0, 3, 1, 2)
+    calls.append(Call(
+        "binary_conv",
+        functools.partial(bconv.binary_conv2d_packed, *args,
+                          out_hw=plan["out_hw"], **geom),
+        functools.partial(ref.binary_conv2d_packed_ref, *args, **geom),
+        _nbytes(*args) + bsz * oh * ow * plan["c_out"] * 4,
+        bsz * oh * ow * plan["c_out"] * plan["kh"] * plan["kw"] * plan["cw"],
+        functools.partial(F.conv2d, F.pad(xf, (pl, pr, pt, pb)),
+                          unpacked_conv_weights(plan),
+                          stride=plan["stride"]),
+        lambda y: y.permute(0, 2, 3, 1).round().to(torch.int32)))
     return calls
 
 
@@ -216,12 +365,24 @@ def check_equal(what: str, got, want) -> None:
                              f"{tuple(got.shape)} vs {tuple(want.shape)})")
 
 
+def check_calls(what: str, calls) -> None:
+    """Each call's kernel against its plain version (and the library call,
+    where it computes the kernel's function)."""
+    for c in calls:
+        want = c.plain()
+        check_equal(f"{what}: {c.name}", c.kernel(), want)
+        if c.library_as is not None:
+            check_equal(f"{what}: {c.name} library call",
+                        c.library_as(c.library()), want)
+
+
 def ragged_checks(gen, dev) -> list[str]:
-    """Ragged shapes: C_out 40, N 10, M 1, channel tails, stride 2 VALID."""
+    """Ragged shapes: channel and K tails, N 10 and 40, M 1, stride 2."""
     import torch
     from repro_torch.core import binarize as B
     from repro_torch.kernels import binary_conv as bconv
     from repro_torch.kernels import binary_matmul as bmm
+    from repro_torch.kernels import bitpack as bp
     from repro_torch.kernels import fused_epilogue as fe
     from repro_torch.kernels import ref
 
@@ -242,6 +403,19 @@ def ragged_checks(gen, dev) -> list[str]:
         check_equal(f"bn_sign_pack M={m} C={c}", fe.bn_sign_pack(x, tau, flip),
                     ref.bn_sign_pack_ref(x, tau, flip))
         done.append(f"bn_sign_pack M={m} C={c}")
+    for m in (1, 37):
+        for k in (1, 31, 33, 784, 1000):
+            x = torch.randn((m, k), generator=gen)
+            x.view(-1)[torch.randint(0, m * k, (max(1, m * k // 7),),
+                                     generator=gen)] = -0.0
+            x.view(-1)[torch.randint(0, m * k, (max(1, m * k // 11),),
+                                     generator=gen)] = float("nan")
+            x[0, 0] = -0.0
+            x = x.to(dev)
+            check_equal(f"bitpack M={m} K={k}", bp.bitpack(x),
+                        ref.bitpack_ref(x))
+    done.append("bitpack M in (1, 37) x K in (1, 31, 33, 784, 1000), with "
+                "-0.0 and NaN")
     for m, n, k in ((1, 10, 1000), (3, 10, 33), (1, 40, 8192), (9, 40, 70)):
         a = B.pack_bits(pm1(m, k)).to(dev)
         w = B.pack_bits(pm1(n, k)).to(dev)
@@ -254,6 +428,21 @@ def ragged_checks(gen, dev) -> list[str]:
                                                      k_true=k),
                     ref.binary_matmul_bn_sign_packed_ref(a, w, tau, flip, k))
         done.append(f"xnor_gemm(+bn_sign) M={m} N={n} K={k}")
+    for m in (1, 3, 9, 37):
+        k = 100
+        x = B.pack_bits(pm1(m, k)).to(dev)
+        stages = []
+        for n in (40, 96, 10):
+            tau, flip = bn(n, k)
+            stages.append({"w_packed": B.pack_bits(pm1(n, k)).to(dev),
+                           "k_true": k, "tau": tau, "flip": flip})
+            k = n
+        check_equal(f"dense_stack M={m}", bmm.binary_dense_stack_packed(
+            x, [s["w_packed"] for s in stages], [s["tau"] for s in stages],
+            [s["flip"] for s in stages],
+            k_trues=[s["k_true"] for s in stages]),
+            ref.binary_dense_stack_packed_ref(stages, x))
+        done.append(f"dense_stack 100 -> 40 -> 96 -> 10, M={m}")
     for (hw, c_in, c_out, stride, padding) in (((9, 9), 33, 40, 2, "VALID"),
                                                 ((7, 7), 20, 40, 1, "SAME"),
                                                 ((9, 9), 64, 10, 2, "SAME")):
@@ -263,13 +452,15 @@ def ragged_checks(gen, dev) -> list[str]:
         geom = dict(kh=3, kw=3, stride=stride, pads=plan["pads"],
                     c_out=c_out, k_true=plan["k_true"])
         tau, flip = bn(c_out, plan["k_true"])
-        args = (x, plan["w_packed"].to(dev), plan["correction"].to(dev), tau,
-                flip)
-        what = f"conv_bn_sign {hw} C_in={c_in} C_out={c_out} s{stride} {padding}"
-        check_equal(what, bconv.binary_conv2d_bn_sign_packed(
+        args = (x, plan["w_packed"].to(dev), plan["correction"].to(dev))
+        what = f"{hw} C_in={c_in} C_out={c_out} s{stride} {padding}"
+        check_equal(f"conv_bn_sign {what}", bconv.binary_conv2d_bn_sign_packed(
+            *args, tau, flip, out_hw=plan["out_hw"], **geom),
+            ref.binary_conv2d_bn_sign_packed_ref(*args, tau, flip, **geom))
+        check_equal(f"binary_conv {what}", bconv.binary_conv2d_packed(
             *args, out_hw=plan["out_hw"], **geom),
-            ref.binary_conv2d_bn_sign_packed_ref(*args, **geom))
-        done.append(what)
+            ref.binary_conv2d_packed_ref(*args, **geom))
+        done.append(f"conv_bn_sign and binary_conv {what}")
         bplan = bconv.make_bitplane_conv_plan(
             pm1(c_out, 3, 3, 3), input_hw=hw, stride=stride, padding=padding)
         x8 = torch.randint(0, 256, (2, *hw, 3), generator=gen,
@@ -285,10 +476,10 @@ def ragged_checks(gen, dev) -> list[str]:
     return done
 
 
-def randomize_bn(params, gen) -> None:
+def randomize_bn(bns, gen) -> None:
     """Random BN statistics with both signs of gamma."""
     import torch
-    for bn in params["conv_bns"] + params["dense_bns"]:
+    for bn in bns:
         c = bn["gamma"].numel()
         sign = torch.where(torch.rand(c, generator=gen) < 0.3, -1.0, 1.0)
         bn["gamma"] = (0.3 + 1.2 * torch.rand(c, generator=gen)) * sign
@@ -299,7 +490,8 @@ def randomize_bn(params, gen) -> None:
 
 def kernel_table(calls, popc_per_s, kernel_reps, plain_reps):
     """Per kernel: summed time, plain time, bound and library time over its
-    launches in one forward (each call checked bit-exact on the way)."""
+    launches in one run of a path (each call checked bit-exact on the
+    way; that plain call is the warm-up of its timing)."""
     import torch
     rows = {}
     for c in calls:
@@ -313,7 +505,7 @@ def kernel_table(calls, popc_per_s, kernel_reps, plain_reps):
             (got.to(torch.int64) - want.to(torch.int64)).abs().max()))
         r["launches_per_forward"] += 1
         r["ms"] += time_ms(c.kernel, kernel_reps)
-        r["plain_ms"] += time_ms(c.plain, plain_reps)
+        r["plain_ms"] += time_ms(c.plain, plain_reps, warmup=0)
         r["bytes"] += c.nbytes
         r["word_ops"] += c.word_ops
         if c.library_as is not None:
@@ -331,6 +523,103 @@ def kernel_table(calls, popc_per_s, kernel_reps, plain_reps):
     return rows
 
 
+def log_table(what, rows) -> None:
+    for k, r in rows.items():
+        lib = ("null" if r["library_ms"] is None
+               else f"{r['library_ms']:.5g}")
+        log(f"time {what} {k}: x{r['launches_per_forward']} per run, "
+            f"kernel {r['ms']:.5g} ms, plain {r['plain_ms']:.5g} ms, "
+            f"bound {r['bound_ms']:.5g} ms ({r['bound_by']}), "
+            f"library {lib} ms")
+
+
+class Driver:
+    """Runs each path with the launch counts set to 0 just before it and
+    read just after, checks them and keeps their sum per kernel."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+        self.ops = ops
+        self.totals = dict.fromkeys(ops.KERNELS, 0)
+
+    def run(self, what, fn, expect):
+        import torch
+        self.ops.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = self.ops.launch_counts()
+        launched = {k: v for k, v in counts.items() if v}
+        if launched != expect:
+            raise AssertionError(f"{what}: launches {launched}, expected "
+                                 f"{expect}")
+        for k, v in counts.items():
+            self.totals[k] += v
+        return out
+
+
+def network_path(drv, what, packed, inputs, forward_int, expect):
+    """Serve a packed network through ``make_packed_forward`` in both
+    dense-stack modes at every batch; check the launches, and the int32
+    pre-BN outputs and logits against the plain path."""
+    import torch
+    from repro_torch.core import binary_layers as L
+    from repro_torch.models import cnn
+    dev = torch.device("cuda", 0)
+    logits = {}
+    for mode in MODES:
+        fwd = cnn.make_packed_forward(packed, dense_stack=mode)
+        for b in BATCHES:
+            logits[mode, b] = drv.run(f"{what} {mode} B={b}",
+                                      lambda: fwd(inputs[b]), expect[mode])
+    for b in BATCHES:
+        xd = inputs[b].to(dev)
+        want_int = forward_int(packed, xd, backend="torch")
+        want = L.apply_batchnorm(packed["bn_out"], want_int)
+        for mode in MODES:
+            check_equal(f"{what} {mode} int32 B={b}",
+                        forward_int(packed, xd, backend="cuda",
+                                    dense_stack=mode), want_int)
+            check_equal(f"{what} {mode} logits B={b}", logits[mode, b], want)
+            if logits[mode, b].shape != want.shape or \
+                    not torch.isfinite(logits[mode, b]).all():
+                raise AssertionError(f"{what} B={b}: logits not finite or "
+                                     f"of the wrong shape")
+    log(f"main path {what}: batches {BATCHES}, launches per forward "
+        f"{expect}; int32 pre-BN outputs and logits equal the plain path at "
+        f"every batch in both modes")
+    return logits
+
+
+def check_float_reference(what, logits, ref_logits) -> None:
+    import torch
+    for mode in MODES:
+        if not torch.allclose(logits[mode, 8], ref_logits, rtol=1e-4,
+                              atol=1e-3):
+            raise AssertionError(f"{what} {mode} batch 8: packed logits "
+                                 f"differ from the float reference beyond "
+                                 f"rtol 1e-4, atol 1e-3")
+    diff = (logits["auto", 8] - ref_logits).abs().max().item()
+    log(f"main path {what}: batch-8 logits match the float reference "
+        f"(max |diff| {diff:.3g})")
+
+
+def time_forwards(what, packed, inputs) -> None:
+    import torch
+    from repro_torch.models import cnn
+    dev = torch.device("cuda", 0)
+    for mode in MODES:
+        fwd = cnn.make_packed_forward(packed, dense_stack=mode)
+        for b in BATCHES:
+            x = inputs[b].to(dev)
+            reps = 20 if b < 256 else 10
+            ms_host = time_ms(lambda: fwd(inputs[b]), reps)
+            ms = time_ms(lambda: fwd(x), reps)
+            log(f"forward {what} {mode} B={b}: {ms_host:.5g} ms per batch "
+                f"from host memory ({b / ms_host * 1e3:.6g} per s), {ms:.5g} "
+                f"ms with the batch already on the card "
+                f"({b / ms * 1e3:.6g} per s)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -338,9 +627,11 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 1
     from repro_torch.kernels import _build
+    from repro_torch.kernels import binary_matmul as bmm
     from repro_torch.kernels import ops
     from repro_torch.models import cnn
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -372,99 +663,146 @@ def main() -> int:
             if "registers" in line or "Compiling entry" in line:
                 log(f"  ptxas {src}: {line.split('ptxas info    :')[-1].strip()}")
 
-    # 3. kernels against their plain versions
+    # the networks, the layer operands and every path's inputs
     gen = torch.Generator().manual_seed(0)
-    spec = cnn.BCNNSpec()
-    params = cnn.init_bcnn(gen, spec)
-    randomize_bn(params, gen)
-    packed = cnn.pack_bcnn(params, spec)          # on the card
-    x8 = torch.randint(0, 256, (8, *spec.input_hw, spec.c_in), generator=gen,
-                       dtype=torch.uint8).to(dev)
-    for c in main_path_calls(packed, x8):
-        check_equal(f"{c.name} full width B=8", c.kernel(), c.plain())
-    log("kernels: full-width BCNN shapes at batch 8 bit-exact "
-        "(K1, K2, K3 x5, K4-fused x2, K4)")
+    bspec = cnn.BCNNSpec()
+    bparams = cnn.init_bcnn(gen, bspec)
+    randomize_bn(bparams["conv_bns"] + bparams["dense_bns"], gen)
+    bcnn = cnn.pack_bcnn(bparams, bspec)          # on the card
+    mspec = cnn.BMLPSpec()
+    mparams = cnn.init_bmlp(gen, mspec)
+    randomize_bn(mparams["bns"], gen)
+    bmlp = cnn.pack_bmlp(mparams, mspec)          # on the card
+    bcnn_in = {b: torch.randint(0, 256, (b, *bspec.input_hw, bspec.c_in),
+                                generator=gen, dtype=torch.uint8)
+               for b in BATCHES}
+    bmlp_in = {b: torch.randint(0, 256, (b, mspec.sizes[0]), generator=gen,
+                                dtype=torch.uint8) for b in BATCHES}
+    mm_a = torch.randn((MATMUL_SIZE, MATMUL_SIZE), generator=gen).to(dev)
+    mm_b = torch.randn((MATMUL_SIZE, MATMUL_SIZE), generator=gen).to(dev)
+    t3 = TABLE3_LAYER
+    conv_w = (torch.rand((t3["c_out"], 3, 3, t3["c_in"]), generator=gen)
+              * 2 - 1)
+    conv_x = {b: torch.randn((b, *t3["hw"], t3["c_in"]), generator=gen
+                             ).to(dev) for b in (1, 256)}
+
+    # 3. kernels against their plain versions
+    for mode in MODES:
+        check_calls(f"bcnn {mode} B=8",
+                    bcnn_calls(bcnn, bcnn_in[8].to(dev), mode))
+        check_calls(f"bmlp {mode} B=8",
+                    bmlp_calls(bmlp, bmlp_in[8].to(dev), mode))
+    log("kernels: full-width BCNN and BMLP shapes at batch 8 bit-exact in "
+        "both dense-stack modes (BCNN: K1, K2, K3 x5, dense_stack or "
+        "K4-fused x2, K4; BMLP: bitpack, K4, K2, dense_stack or K4-fused "
+        "x2, K4)")
+    check_calls(f"binary_matmul {MATMUL_SIZE}^2", matmul_calls(mm_a, mm_b))
+    log(f"kernels: ops.binary_matmul at {MATMUL_SIZE}x{MATMUL_SIZE} "
+        f"bit-exact (bitpack on both operands; K4 against the plain version "
+        f"and against the ±1 float32 torch.matmul, TF32 off)")
+    for b, x in conv_x.items():
+        check_calls(f"binary_conv2d B={b}", conv_calls(x, conv_w))
+    log("kernels: ops.binary_conv2d on the Table-3 layer at batch 1 and 256 "
+        "bit-exact (bitpack; K7 against the plain version and against "
+        "F.conv2d on the ±1 tensors, TF32 off)")
     for what in ragged_checks(gen, dev):
         log(f"kernels: {what} bit-exact")
+    stack_bytes = {
+        "bcnn": bmm.dense_stack_bytes(
+            [p["w_packed"] for p in bcnn["denses"][:-1]]),
+        "bmlp": bmm.dense_stack_bytes(
+            [p["w_packed"] for p in bmlp["layers"][1:-1]])}
+    log(f"dense_stack rule: hidden stacks of {stack_bytes} bytes against "
+        f"the {bmm.STACK_L2_BUDGET_BYTES}-byte L2 budget: 'auto' runs "
+        f"the single launch for both")
 
-    # 4. the main path
-    fwd = cnn.make_packed_forward(packed)
-    expect = {"bitplane_conv": 1, "bn_sign_pack": 1,
-              "conv_bn_sign": len(spec.stages) - 1,
-              "xnor_gemm_bn_sign": len(spec.dense) - 1, "xnor_gemm": 1}
-    batches = (1, 8, 64, 256)
-    inputs = {b: torch.randint(0, 256, (b, *spec.input_hw, spec.c_in),
-                               generator=gen, dtype=torch.uint8)
-              for b in batches}
-    ops.reset_launch_counts()
-    logits = {}
-    for b in batches:
-        before = ops.launch_counts()
-        logits[b] = fwd(inputs[b])
-        torch.cuda.synchronize()
-        per = {k: v - before[k] for k, v in ops.launch_counts().items()}
-        if per != expect:
-            raise AssertionError(f"batch {b}: launches {per}, expected "
-                                 f"{expect}")
-    launches = ops.launch_counts()
-    log(f"main path: batches {batches}, launches per forward {expect}, "
-        f"in all {launches}")
-    for b in batches:
-        xd = inputs[b].to(dev)
-        got_int = cnn.bcnn_forward_packed_int(packed, xd, backend="cuda")
-        want_int = cnn.bcnn_forward_packed_int(packed, xd, backend="torch")
-        check_equal(f"forward int32 B={b}", got_int, want_int)
-        want = cnn.bcnn_forward_packed(packed, xd, backend="torch")
-        check_equal(f"forward logits B={b}", logits[b], want)
-        if logits[b].shape != (b, spec.dense[-1]) or \
-                not torch.isfinite(logits[b]).all():
-            raise AssertionError(f"batch {b}: logits {logits[b].shape} "
-                                 f"not finite or of the wrong shape")
-    ref_logits = cnn.bcnn_forward_float(
-        cnn.to_device(params, dev), inputs[8].to(dev), spec)
-    if not torch.allclose(logits[8], ref_logits, rtol=1e-4, atol=1e-3):
-        raise AssertionError("batch 8: packed logits differ from the float "
-                             "reference beyond rtol 1e-4, atol 1e-3")
-    log("main path: int32 pre-BN outputs and logits equal the plain path "
-        "at every batch; batch-8 logits match the float reference "
-        f"(max |diff| {(logits[8] - ref_logits).abs().max().item():.3g})")
+    # 4. the main paths
+    drv = Driver()
+    n_conv = len(bspec.stages) - 1
+    bcnn_expect = {
+        "auto": {"bitplane_conv": 1, "bn_sign_pack": 1,
+                 "conv_bn_sign": n_conv, "dense_stack": 1, "xnor_gemm": 1},
+        "per_layer": {"bitplane_conv": 1, "bn_sign_pack": 1,
+                      "conv_bn_sign": n_conv,
+                      "xnor_gemm_bn_sign": len(bspec.dense) - 1,
+                      "xnor_gemm": 1}}
+    bmlp_expect = {
+        "auto": {"bitpack": 1, "xnor_gemm": 2, "bn_sign_pack": 1,
+                 "dense_stack": 1},
+        "per_layer": {"bitpack": 1, "xnor_gemm": 2, "bn_sign_pack": 1,
+                      "xnor_gemm_bn_sign": len(mspec.sizes) - 3}}
+    bcnn_logits = network_path(drv, "bcnn", bcnn, bcnn_in,
+                               cnn.bcnn_forward_packed_int, bcnn_expect)
+    check_float_reference("bcnn", bcnn_logits, cnn.bcnn_forward_float(
+        cnn.to_device(bparams, dev), bcnn_in[8].to(dev), bspec))
+    bmlp_logits = network_path(drv, "bmlp", bmlp, bmlp_in,
+                               cnn.bmlp_forward_packed_int, bmlp_expect)
+    check_float_reference("bmlp", bmlp_logits, cnn.bmlp_forward_float(
+        cnn.to_device(mparams, dev), bmlp_in[8].to(dev)))
+    mm = drv.run("binary_matmul", lambda: ops.binary_matmul(mm_a, mm_b),
+                 {"bitpack": 2, "xnor_gemm": 1})
+    check_equal("binary_matmul against the ±1 float32 torch.matmul", mm,
+                torch.matmul(torch.where(mm_a >= 0, 1.0, -1.0),
+                             torch.where(mm_b >= 0, 1.0, -1.0).T)
+                .round().to(torch.int32))
+    for b, x in conv_x.items():
+        y = drv.run(f"binary_conv2d B={b}",
+                    lambda: ops.binary_conv2d(x, conv_w.to(dev)),
+                    {"bitpack": 1, "binary_conv": 1})
+        check_equal(f"binary_conv2d B={b}", y, ops.binary_conv2d(
+            x, conv_w.to(dev), backend="torch"))
+    log(f"main path layer entry points: ops.binary_matmul {MATMUL_SIZE}^2 "
+        f"(bitpack x2, K4 x1), ops.binary_conv2d Table-3 layer at batch 1 "
+        f"and 256 (bitpack x1, K7 x1), equal to the plain path")
+    launches = drv.totals
+    log(f"main paths: launches in all {launches}")
+    missing = [k for k in SOURCES if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main paths: "
+                             f"{missing}")
 
     # 5. times
-    kernels_by_batch = {}
+    rows = {}
     for b in (1, 256):
-        calls = main_path_calls(packed, inputs[b].to(dev))
-        rows = kernel_table(calls, popc_per_s, kernel_reps=20,
-                            plain_reps=2 if b > 1 else 5)
-        kernels_by_batch[b] = rows
-        for k, r in rows.items():
-            lib = ("null" if r["library_ms"] is None
-                   else f"{r['library_ms']:.5g}")
-            log(f"time B={b} {k}: x{r['launches_per_forward']} per forward, "
-                f"kernel {r['ms']:.5g} ms, plain {r['plain_ms']:.5g} ms, "
-                f"bound {r['bound_ms']:.5g} ms ({r['bound_by']}), "
-                f"library {lib} ms")
-    for b in batches:
-        x = inputs[b].to(dev)
-        reps = 20 if b < 256 else 10
-        ms_host = time_ms(lambda: fwd(inputs[b]), reps)
-        ms = time_ms(lambda: fwd(x), reps)
-        log(f"forward B={b}: {ms_host:.5g} ms per batch from host memory "
-            f"({b / ms_host * 1e3:.6g} images/s), {ms:.5g} ms with the "
-            f"batch already on the card ({b / ms * 1e3:.6g} images/s)")
-    x = inputs[256].to(dev)
-    plain_fwd_ms = time_ms(
-        lambda: cnn.bcnn_forward_packed(packed, x, backend="torch"), reps=1)
-    log(f"forward B=256 on the plain versions: {plain_fwd_ms:.5g} ms")
+        plain_reps = 2 if b > 1 else 5
+        for what, calls in (
+                ("bcnn auto", bcnn_calls(bcnn, bcnn_in[b].to(dev), "auto")),
+                ("bcnn per_layer", [c for c in bcnn_calls(
+                    bcnn, bcnn_in[b].to(dev), "per_layer")
+                    if c.name == "xnor_gemm_bn_sign"]),
+                ("bmlp auto", bmlp_calls(bmlp, bmlp_in[b].to(dev), "auto")),
+                ("bmlp per_layer", [c for c in bmlp_calls(
+                    bmlp, bmlp_in[b].to(dev), "per_layer")
+                    if c.name == "xnor_gemm_bn_sign"]),
+                ("binary_conv2d", conv_calls(conv_x[b], conv_w))):
+            rows[what, b] = kernel_table(calls, popc_per_s, kernel_reps=20,
+                                         plain_reps=plain_reps)
+            log_table(f"{what} B={b}", rows[what, b])
+    mm_rows = kernel_table(matmul_calls(mm_a, mm_b), popc_per_s,
+                           kernel_reps=3, plain_reps=1)
+    log_table(f"binary_matmul {MATMUL_SIZE}^2", mm_rows)
+    time_forwards("bcnn", bcnn, bcnn_in)
+    time_forwards("bmlp", bmlp, bmlp_in)
+    for what, packed, x, fwd in (
+            ("bcnn", bcnn, bcnn_in[256], cnn.bcnn_forward_packed),
+            ("bmlp", bmlp, bmlp_in[256], cnn.bmlp_forward_packed)):
+        xd = x.to(dev)
+        plain_fwd_ms = time_ms(lambda: fwd(packed, xd, backend="torch"),
+                               reps=1)
+        log(f"forward {what} B=256 on the plain versions: {plain_fwd_ms:.5g} "
+            f"ms")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     kernels = []
-    for k, (source, replaces) in SOURCES.items():
-        r = kernels_by_batch[256][k]
+    for k, (source, replaces, home) in SOURCES.items():
+        r = rows[home, 256][k]
         kernels.append({
             "name": k, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[k],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "batch": 256,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "path": home, "batch": 256,
             "launches_per_forward": r["launches_per_forward"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

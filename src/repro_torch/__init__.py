@@ -1,4 +1,5 @@
-"""Espresso's packed BCNN forward on PyTorch and hand-written CUDA kernels.
+"""Espresso's packed BMLP and BCNN forwards on PyTorch and hand-written
+CUDA kernels.
 
 The port of ``src/repro`` (JAX + Pallas) to an NVIDIA Hopper card.  It
 keeps the reference's word layout, so packed tensors compare word for
@@ -8,8 +9,9 @@ bit pattern of the reference's ``uint32`` arrays; the CUDA kernels read
 them as ``uint32_t``.
 
 Entry points run on the card unless the caller asks for the CPU
-(``pack_bcnn(..., device="cpu")``); on the CPU the dispatchers of
-``kernels/ops.py`` run each kernel's plain PyTorch version, and the
-kernel wrappers themselves take CUDA tensors only.  This package imports
+(``pack_bcnn(..., device="cpu")``, ``pack_bmlp(..., device="cpu")``); on
+the CPU the dispatchers of ``kernels/ops.py`` run each kernel's plain
+PyTorch version, and the kernel wrappers themselves take CUDA tensors
+only.  This package imports
 ``torch``, numpy and the standard library only.
 """

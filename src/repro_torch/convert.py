@@ -16,7 +16,8 @@ from repro_torch.models import cnn
 
 def params_to_torch(tree):
     """A reference parameter tree (dicts/lists of arrays, e.g. the output of
-    ``repro.models.cnn.init_bcnn``) -> the same tree of float32 tensors."""
+    ``repro.models.cnn.init_bcnn`` or ``init_bmlp``) -> the same tree of
+    float32 tensors."""
     if isinstance(tree, dict):
         return {k: params_to_torch(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -45,3 +46,9 @@ def bcnn_spec(ref_spec) -> cnn.BCNNSpec:
                      for st in ref_spec.stages),
         dense=tuple(ref_spec.dense), ksize=ref_spec.ksize,
         nbits_input=ref_spec.nbits_input)
+
+
+def bmlp_spec(ref_spec) -> cnn.BMLPSpec:
+    """The port's ``BMLPSpec`` with the fields of a reference spec."""
+    return cnn.BMLPSpec(sizes=tuple(ref_spec.sizes),
+                        nbits_input=ref_spec.nbits_input)

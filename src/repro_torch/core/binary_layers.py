@@ -47,6 +47,17 @@ def pack_binary_dense(params: Params) -> Params:
     return {"w_packed": B.pack_bits(w), "k_true": w.shape[1]}
 
 
+def apply_binary_dense_packed(packed: Params, x: torch.Tensor, *,
+                              backend: str = "auto") -> torch.Tensor:
+    """Pack sign(x) (K5 ``bitpack``), then the XNOR-popcount GEMM;
+    (..., N) int32."""
+    lead = x.shape[:-1]
+    x_p = kops.bitpack(x.reshape(-1, x.shape[-1]), backend=backend)
+    out = kops.binary_matmul_packed(x_p, packed["w_packed"],
+                                    k_true=packed["k_true"], backend=backend)
+    return out.reshape(*lead, -1)
+
+
 def pack_binary_dense_grouped(params: Params, group: int) -> Params:
     """Weight packing for pre-packed activations with per-group padding.
 
@@ -89,9 +100,13 @@ def apply_binary_dense_bn_packed(packed: Params, folded: Params,
 
 def apply_binary_dense_stack_packed(packed_layers: list, foldeds: list,
                                     x_packed: torch.Tensor, *,
-                                    backend: str = "auto") -> torch.Tensor:
-    """The hidden dense stack, one fused launch per layer, chained without
-    un-packed activations."""
+                                    backend: str = "auto",
+                                    resident: bool | None = None
+                                    ) -> torch.Tensor:
+    """The hidden dense stack, each layer GEMM + BN-sign + re-bitpack,
+    chained without un-packed activations: one launch for the whole stack
+    (K6) or one fused launch per layer, as ``resident`` says
+    (``kernels.ops.binary_dense_stack_packed``)."""
     if len(packed_layers) != len(foldeds):
         raise ValueError(f"{len(packed_layers)} layers but {len(foldeds)} "
                          f"folded batch norms")
@@ -100,8 +115,57 @@ def apply_binary_dense_stack_packed(packed_layers: list, foldeds: list,
               for p, f in zip(packed_layers, foldeds)]
     lead = x_packed.shape[:-1]
     x2 = x_packed.reshape(-1, x_packed.shape[-1]).contiguous()
-    out = kops.binary_dense_stack_packed(stages, x2, backend=backend)
+    out = kops.binary_dense_stack_packed(stages, x2, backend=backend,
+                                         resident=resident)
     return out.reshape(*lead, -1)
+
+
+# ---------------------------------------------------------------------------
+# First-layer bit-plane dense (paper §4.3 / C4)
+# ---------------------------------------------------------------------------
+
+def pack_bitplane_dense(params: Params, nbits: int = 8) -> Params:
+    """Packed weights plus ``w_rowsum`` = sum of sign(W) per output, the
+    correction of the {0,1} -> ±1 plane shift (paper eq. 3)."""
+    w = params["w"]
+    return {"w_packed": B.pack_bits(w), "k_true": w.shape[1],
+            "w_rowsum": B.sign_pm1(w).sum(dim=1).to(torch.int32),
+            "nbits": nbits}
+
+
+def apply_bitplane_dense_packed(packed: Params, x_uint8: torch.Tensor, *,
+                                backend: str = "auto") -> torch.Tensor:
+    """First layer on fixed-precision input: (..., K) uint8 -> (..., N)
+    int32 == x . sign(W)^T, exactly.
+
+    The reference runs one ``bitpack`` + GEMM per bit plane.  Here the
+    planes, as ±1 float32, stack along M: one ``bitpack`` over (nbits*M,
+    K), one GEMM over (nbits*M, Kw) x (N, Kw), then
+    y = 1/2 sum_i 2^i (d_i + rowsum) in int32 tensor ops: the same
+    integers from the same two kernels in 2 launches instead of 2*nbits.
+    The sum is even before the halving, so ``>> 1`` is exact.
+    """
+    nbits = packed["nbits"]
+    lead = x_uint8.shape[:-1]
+    x2 = x_uint8.reshape(-1, x_uint8.shape[-1])
+    m = x2.shape[0]
+    planes = B.bitplanes_uint8(x2, nbits)               # (nbits, M, K) {0,1}
+    planes_pm1 = (2 * planes - 1).to(torch.float32).reshape(nbits * m, -1)
+    x_p = kops.bitpack(planes_pm1, backend=backend)
+    d = kops.binary_matmul_packed(x_p, packed["w_packed"],
+                                  k_true=packed["k_true"], backend=backend)
+    d = d.reshape(nbits, m, -1) + packed["w_rowsum"]
+    shifts = torch.arange(nbits, dtype=torch.int32, device=d.device)
+    out = (d << shifts[:, None, None]).sum(dim=0, dtype=torch.int32) >> 1
+    return out.reshape(*lead, -1)
+
+
+def apply_bitplane_dense_float(params: Params,
+                               x_uint8: torch.Tensor) -> torch.Tensor:
+    """Reference: the raw uint8 input against sign(W).  The dot runs in
+    float64, exact on any device, and returns float32."""
+    wb = B.sign_pm1(params["w"]).to(torch.float64)
+    return (x_uint8.to(torch.float64) @ wb.T).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -119,6 +183,13 @@ def pack_binary_conv2d(params: Params, *, input_hw: tuple[int, int],
     ``kernels.binary_conv.make_conv_plan``."""
     return bconv.make_conv_plan(params["w"], input_hw=input_hw,
                                 stride=stride, padding=padding)
+
+
+def apply_binary_conv2d_packed(packed: Params, x_packed: torch.Tensor, *,
+                               backend: str = "auto") -> torch.Tensor:
+    """Packed conv with in-kernel im2col -> XNOR popcount -> +correction:
+    (B, H, W, Cw) words -> (B, H', W', C_out) int32."""
+    return kops.binary_conv2d_packed(packed, x_packed, backend=backend)
 
 
 def apply_binary_conv2d_bn_packed(packed: Params, folded: Params,

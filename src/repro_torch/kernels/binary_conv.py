@@ -7,8 +7,10 @@
 * :func:`bitplane_conv2d_packed` (K1, ``csrc/bitplane_conv.cu``) is the
   first-layer conv over packed bit planes; :func:`binary_conv2d_bn_sign_packed`
   (K3, ``csrc/conv_bn_sign.cu``) is the packed conv with the C5
-  correction and the fused BN-sign repack.  Both do their im2col inside
-  the kernel; padded taps read the word 0, i.e. all -1.
+  correction and the fused BN-sign repack, and :func:`binary_conv2d_packed`
+  (K7, the same source with the epilogue switched off) the packed conv
+  with an int32 output.  All three do their im2col inside the kernel;
+  padded taps read the word 0, i.e. all -1.
 
 Each wrapper launches its kernel and takes CUDA tensors only;
 ``kernels/ops.py`` routes CPU tensors to the plain versions
@@ -21,6 +23,10 @@ import torch.nn.functional as F
 
 from repro_torch.core import binarize as B
 from repro_torch.kernels import _build
+
+# csrc/conv_bn_sign.cu: K3 (fused epilogue) and K7 (int32 epilogue)
+_CONV_ENTRIES = {"conv_bn_sign": "pppppp" + "i" * 13 + "p",
+                 "binary_conv": "pppp" + "i" * 13 + "p"}
 
 
 def conv_geometry(input_hw: tuple[int, int], kh: int, kw: int, stride: int,
@@ -151,6 +157,22 @@ def bitplane_conv2d_packed(x_planes: torch.Tensor, w_packed: torch.Tensor,
 bitplane_conv2d_packed.launches = 0
 
 
+def _conv_operands(x_packed, w_packed, correction, *, kh, kw, stride, pads,
+                   out_hw, c_out):
+    """Check the operands K3 and K7 share; returns the launch's device,
+    input sizes and operand pointers."""
+    dev = _build.cuda_device(x_packed, "x_packed")
+    bsz, h, w, cw = x_packed.shape
+    _check_geometry(h, w, kh, kw, stride, pads, out_hw)
+    ptrs = (_build.require(x_packed, "x_packed", torch.int32,
+                           x_packed.shape, dev),
+            _build.require(w_packed, "w_packed", torch.int32,
+                           (c_out, kh * kw * cw), dev),
+            _build.require(correction, "correction", torch.int32,
+                           (*out_hw, c_out), dev))
+    return dev, (bsz, h, w, cw), ptrs
+
+
 def binary_conv2d_bn_sign_packed(x_packed: torch.Tensor,
                                  w_packed: torch.Tensor,
                                  correction: torch.Tensor, tau: torch.Tensor,
@@ -165,22 +187,15 @@ def binary_conv2d_bn_sign_packed(x_packed: torch.Tensor,
     ``pack_bits(apply_bn_sign_folded(conv_out))``.  Adds one to
     ``binary_conv2d_bn_sign_packed.launches`` per kernel launch.
     """
-    dev = _build.cuda_device(x_packed, "x_packed")
-    bsz, h, w, cw = x_packed.shape
-    _check_geometry(h, w, kh, kw, stride, pads, out_hw)
+    dev, (bsz, h, w, cw), ptrs = _conv_operands(
+        x_packed, w_packed, correction, kh=kh, kw=kw, stride=stride,
+        pads=pads, out_hw=out_hw, c_out=c_out)
     oh, ow = out_hw
     out = torch.empty((bsz, oh, ow, B.packed_width(c_out)),
                       dtype=torch.int32, device=dev)
-    lib = _build.load("conv_bn_sign", {"conv_bn_sign": "pppppp" + "i" * 13
-                                       + "p"})
+    lib = _build.load("conv_bn_sign", _CONV_ENTRIES)
     err = lib.conv_bn_sign(
-        _build.require(x_packed, "x_packed", torch.int32, x_packed.shape,
-                       dev),
-        _build.require(w_packed, "w_packed", torch.int32,
-                       (c_out, kh * kw * cw), dev),
-        _build.require(correction, "correction", torch.int32,
-                       (oh, ow, c_out), dev),
-        _build.require(tau, "tau", torch.float32, (c_out,), dev),
+        *ptrs, _build.require(tau, "tau", torch.float32, (c_out,), dev),
         _build.require(flip, "flip", torch.float32, (c_out,), dev),
         out.data_ptr(), bsz, h, w, cw, c_out, kh, kw, stride, pads[0][0],
         pads[1][0], oh, ow, k_true, _build.stream_of(x_packed))
@@ -190,3 +205,31 @@ def binary_conv2d_bn_sign_packed(x_packed: torch.Tensor,
 
 
 binary_conv2d_bn_sign_packed.launches = 0
+
+
+def binary_conv2d_packed(x_packed: torch.Tensor, w_packed: torch.Tensor,
+                         correction: torch.Tensor, *, kh: int, kw: int,
+                         stride: int, pads, out_hw: tuple[int, int],
+                         c_out: int, k_true: int) -> torch.Tensor:
+    """K7: packed conv + C5 correction with an int32 output.
+
+    ``x_packed``: (B, H, W, Cw) channel-packed words, ``correction``:
+    (OH, OW, C_out) int32.  Returns (B, OH, OW, C_out) int32, the exact
+    integer conv of the ±1 tensors with true zero padding.  Adds one to
+    ``binary_conv2d_packed.launches`` per kernel launch.
+    """
+    dev, (bsz, h, w, cw), ptrs = _conv_operands(
+        x_packed, w_packed, correction, kh=kh, kw=kw, stride=stride,
+        pads=pads, out_hw=out_hw, c_out=c_out)
+    oh, ow = out_hw
+    out = torch.empty((bsz, oh, ow, c_out), dtype=torch.int32, device=dev)
+    lib = _build.load("conv_bn_sign", _CONV_ENTRIES)
+    err = lib.binary_conv(*ptrs, out.data_ptr(), bsz, h, w, cw, c_out, kh,
+                          kw, stride, pads[0][0], pads[1][0], oh, ow, k_true,
+                          _build.stream_of(x_packed))
+    _build.check(err, "binary_conv")
+    binary_conv2d_packed.launches += 1
+    return out
+
+
+binary_conv2d_packed.launches = 0

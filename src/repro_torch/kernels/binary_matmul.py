@@ -1,4 +1,5 @@
-"""Packed binary dense GEMM (paper §4.2, C1/C2/C7) and its CUDA kernel (K4).
+"""Packed binary dense GEMM (paper §4.2, C1/C2/C7): its CUDA kernel (K4)
+and the single-launch hidden stack (K6).
 
     out[m, n] = K - 2 * popcount(XOR(a[m, :], b[n, :]))
 
@@ -10,11 +11,18 @@ serves every M, from a single request to a full batch.  The contraction
 contract (the reference's ``_mismatch_counts``) is
 ``binarize.packed_mismatches``.
 
+:func:`binary_dense_stack_packed` (K6, ``csrc/dense_stack.cu``) runs a
+whole chain of hidden layers, each GEMM + BN-sign + re-bitpack, in one
+launch; :func:`dense_stack_fits` is the shape rule that decides when a
+stack takes it (``kernels.ops.binary_dense_stack_packed``).
+
 Each wrapper launches its kernel and takes CUDA tensors only;
 ``kernels/ops.py`` routes CPU tensors to the plain versions
 (``kernels/ref.py``).
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -22,6 +30,21 @@ from repro_torch.core import binarize as B
 from repro_torch.kernels import _build
 
 _ENTRIES = {"xnor_gemm": "pppiiiip", "xnor_gemm_bn_sign": "pppppiiiip"}
+
+# The H100 residency rule of the single-launch stack (K6).  Its M tiles
+# run on different SMs and each one reads the whole stack, so the stack
+# is worth one launch when its weights and folded thresholds stay hot in
+# the 50 MB L2 while the activation tiles stream: 16 MiB, a third of L2,
+# leaves the rest to the activations and to whatever else runs.  A stack
+# also needs the two activation buffers of its largest M tile in one
+# block's shared memory (232,448 bytes on the H100).  The reference's
+# rule (``dense_stack_fits_vmem``) sizes the same decision against an
+# 8 MiB VMEM budget; both resolve the BMLP's and the BCNN's stacks to the
+# single launch.
+STACK_L2_BUDGET_BYTES = 16 * 2**20
+STACK_SMEM_BYTES = 232_448
+STACK_MAX_TILE_ROWS = 8       # csrc/dense_stack.cu: kMaxTileRows
+STACK_MAX_STAGES = 16         # csrc/dense_stack.cu: kMaxStages
 
 
 def _operands(a_packed: torch.Tensor, b_packed: torch.Tensor):
@@ -76,3 +99,90 @@ def binary_matmul_bn_sign_packed(a_packed: torch.Tensor,
 
 
 binary_matmul_bn_sign_packed.launches = 0
+
+
+def dense_stack_bytes(weights: list) -> int:
+    """Bytes of a hidden stack that K6 keeps hot in L2: every stage's
+    packed (N_s, Kw_s) weights plus its float32 tau and flip."""
+    return sum(int(w.shape[0]) * int(w.shape[1]) * 4 + 2 * int(w.shape[0]) * 4
+               for w in weights)
+
+
+def _buffer_words(weights: list) -> int:
+    """Words of one activation row buffer: the widest packed activation
+    of the stack, its input included."""
+    return max([int(weights[0].shape[1])]
+               + [B.packed_width(int(w.shape[0])) for w in weights])
+
+
+def dense_stack_fits(weights: list) -> bool:
+    """Residency decision for K6, pure shape math: (a) the stack's
+    weights and thresholds fit ``STACK_L2_BUDGET_BYTES`` and (b) two
+    activation buffers of the largest M tile fit one block's shared
+    memory (and the stack has at most ``STACK_MAX_STAGES`` stages)."""
+    if not weights or len(weights) > STACK_MAX_STAGES:
+        return False
+    smem = 2 * STACK_MAX_TILE_ROWS * _buffer_words(weights) * 4
+    return (dense_stack_bytes(weights) <= STACK_L2_BUDGET_BYTES
+            and smem <= STACK_SMEM_BYTES)
+
+
+def binary_dense_stack_packed(x_packed: torch.Tensor, weights: list,
+                              taus: list, flips: list, *,
+                              k_trues) -> torch.Tensor:
+    """K6: the whole hidden dense stack in one launch.
+
+    ``x_packed``: (M, Kw_0) words; stage ``s`` applies ``weights[s]``
+    (N_s, Kw_s) words, then the folded BN ``taus[s]``/``flips[s]`` (N_s,)
+    f32 and re-bitpacks.  ``Kw_0`` must be the input's width and ``Kw_s``
+    must be ceil(N_{s-1}/32).  Returns (M, ceil(N_last/32)) words,
+    bit-identical to chaining :func:`binary_matmul_bn_sign_packed`.  The M
+    tile (ceil(M / SMs) rows, 1 to 8) stays inside this wrapper.  Adds one
+    to ``binary_dense_stack_packed.launches`` per kernel launch.
+    """
+    dev = _build.cuda_device(x_packed, "x_packed")
+    n_stages = len(weights)
+    if not 1 <= n_stages <= STACK_MAX_STAGES or not \
+            n_stages == len(taus) == len(flips) == len(k_trues):
+        raise ValueError(
+            f"the stack takes 1 to {STACK_MAX_STAGES} stages with one "
+            f"weight, tau, flip and k_true each; got {n_stages} weights, "
+            f"{len(taus)} taus, {len(flips)} flips, {len(k_trues)} k_trues")
+    m, kw0 = x_packed.shape
+    px = _build.require(x_packed, "x_packed", torch.int32, (m, kw0), dev)
+    ptrs, ns, kws = [], [], []
+    prev = kw0
+    for s, w in enumerate(weights):
+        n, kw = w.shape
+        if kw != prev:
+            raise ValueError(f"stage {s} weights are {kw} words wide, its "
+                             f"input is {prev} words")
+        ptrs.append(_build.require(w, f"weights[{s}]", torch.int32, (n, kw),
+                                   dev))
+        ns.append(n)
+        kws.append(kw)
+        prev = B.packed_width(n)
+    ptrs += [_build.require(t, f"taus[{s}]", torch.float32, (n,), dev)
+             for s, (t, n) in enumerate(zip(taus, ns))]
+    ptrs += [_build.require(f, f"flips[{s}]", torch.float32, (n,), dev)
+             for s, (f, n) in enumerate(zip(flips, ns))]
+    buf_words = _buffer_words(weights)
+    if 2 * STACK_MAX_TILE_ROWS * buf_words * 4 > STACK_SMEM_BYTES:
+        raise ValueError(f"activation rows of {buf_words} words do not fit "
+                         f"the stack kernel's shared memory")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tile_rows = min(STACK_MAX_TILE_ROWS, max(1, -(-m // sms)))
+    out = torch.empty((m, prev), dtype=torch.int32, device=dev)
+    ptr_arr = (ctypes.c_uint64 * len(ptrs))(*ptrs)
+    dim_arr = (ctypes.c_int * (3 * n_stages))(
+        *ns, *kws, *(int(k) for k in k_trues))
+    lib = _build.load("dense_stack", {"dense_stack": "ppppiiiiip"})
+    err = lib.dense_stack(px, out.data_ptr(), ctypes.addressof(ptr_arr),
+                          ctypes.addressof(dim_arr), n_stages, m, kw0,
+                          tile_rows, buf_words, _build.stream_of(x_packed))
+    _build.check(err, "dense_stack")
+    binary_dense_stack_packed.launches += 1
+    return out
+
+
+binary_dense_stack_packed.launches = 0

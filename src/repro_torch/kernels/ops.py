@@ -19,15 +19,19 @@ import torch
 from repro_torch.core import binarize as B
 from repro_torch.kernels import binary_conv as _bconv
 from repro_torch.kernels import binary_matmul as _bmm
+from repro_torch.kernels import bitpack as _bp
 from repro_torch.kernels import fused_epilogue as _fe
 from repro_torch.kernels import ref as _ref
 
 # Every kernel wrapper of the package by kernel name; each keeps an
 # integer ``launches`` count of its own kernel launches.
 KERNELS = {
+    "binary_conv": _bconv.binary_conv2d_packed,
+    "bitpack": _bp.bitpack,
     "bitplane_conv": _bconv.bitplane_conv2d_packed,
     "bn_sign_pack": _fe.bn_sign_pack,
     "conv_bn_sign": _bconv.binary_conv2d_bn_sign_packed,
+    "dense_stack": _bmm.binary_dense_stack_packed,
     "xnor_gemm": _bmm.binary_matmul_packed,
     "xnor_gemm_bn_sign": _bmm.binary_matmul_bn_sign_packed,
 }
@@ -57,6 +61,38 @@ def _resolve(backend: str, x: torch.Tensor) -> str:
     return backend
 
 
+def _as_float32(x: torch.Tensor) -> torch.Tensor:
+    """The bit-pack kernel's float32 input, with the sign of every element
+    of ``x`` kept.  A cast keeps it for every real dtype but float64,
+    whose tiny negatives would round to -0.0 (bit 1), so float64 goes
+    through ±1 first (NaN -> -1, bit 0, as ``x >= 0`` says)."""
+    if x.dtype == torch.float64:
+        return torch.where(x >= 0, 1.0, -1.0).to(torch.float32)
+    return x.to(torch.float32)
+
+
+def bitpack(x: torch.Tensor, *, backend: str = "auto") -> torch.Tensor:
+    """Sign-binarize + pack along the last axis: (..., K) real ->
+    (..., ceil(K/32)) words, bit = (x >= 0), LSB-first, zero-bit tail
+    (-0.0 packs as 1 and NaN as 0).  The kernel takes float32; any other
+    real dtype is converted first, its signs kept."""
+    if _resolve(backend, x) == "torch":
+        return _ref.bitpack_ref(x)
+    x2 = _as_float32(x).reshape(-1, x.shape[-1]).contiguous()
+    out = _bp.bitpack(x2)
+    return out.reshape(*x.shape[:-1], out.shape[-1])
+
+
+def binary_matmul(a: torch.Tensor, b: torch.Tensor, *,
+                  backend: str = "auto") -> torch.Tensor:
+    """Binary GEMM on real operands: (M, K) x (N, K) -> (M, N) int32 =
+    sign(a) . sign(b)^T.  Both operands are packed through
+    :func:`bitpack`, then contracted by :func:`binary_matmul_packed`."""
+    return binary_matmul_packed(bitpack(a, backend=backend),
+                                bitpack(b, backend=backend),
+                                k_true=a.shape[-1], backend=backend)
+
+
 def binary_matmul_packed(a_packed: torch.Tensor, b_packed: torch.Tensor, *,
                          k_true: int, backend: str = "auto") -> torch.Tensor:
     """Binary GEMM on pre-packed operands: (M, Kw) x (N, Kw) -> (M, N)
@@ -80,18 +116,36 @@ def binary_matmul_bn_sign_packed(a_packed: torch.Tensor,
 
 
 def binary_dense_stack_packed(stages: list, x_packed: torch.Tensor, *,
-                              backend: str = "auto") -> torch.Tensor:
-    """A chain of hidden dense layers, each one fused GEMM + BN-sign +
-    re-bitpack launch (the reference's per-layer form of the stack).
+                              backend: str = "auto",
+                              resident: bool | None = None) -> torch.Tensor:
+    """A chain of hidden dense layers, each GEMM + BN-sign + re-bitpack:
+    (M, Kw_0) words -> (M, ceil(N_last/32)) words, bit-identical to
+    chaining :func:`binary_matmul_bn_sign_packed`.
 
     ``stages``: list of ``{"w_packed", "k_true", "tau", "flip"}``.  An
-    empty list is the identity.
+    empty list is the identity.  On the card, ``resident=None`` asks the
+    shape rule ``binary_matmul.dense_stack_fits`` whether the stack runs
+    as one launch (K6); ``True`` forces K6 and ``False`` one fused K4
+    launch per layer.  The plain version serves every value of
+    ``resident`` alike.
     """
-    h = x_packed
+    route = _resolve(backend, x_packed)
+    if not stages:
+        return x_packed
+    if route == "torch":
+        return _ref.binary_dense_stack_packed_ref(stages, x_packed)
+    weights = [s["w_packed"] for s in stages]
+    if resident is None:
+        resident = _bmm.dense_stack_fits(weights)
+    if resident:
+        return _bmm.binary_dense_stack_packed(
+            x_packed.contiguous(), weights, [s["tau"] for s in stages],
+            [s["flip"] for s in stages],
+            k_trues=[s["k_true"] for s in stages])
+    h = x_packed.contiguous()
     for s in stages:
-        h = binary_matmul_bn_sign_packed(h, s["w_packed"], s["tau"],
-                                         s["flip"], k_true=s["k_true"],
-                                         backend=backend)
+        h = _bmm.binary_matmul_bn_sign_packed(h, s["w_packed"], s["tau"],
+                                              s["flip"], k_true=s["k_true"])
     return h
 
 
@@ -106,21 +160,55 @@ def bn_sign_pack(x: torch.Tensor, tau: torch.Tensor, flip: torch.Tensor, *,
     return out.reshape(*x.shape[:-1], out.shape[-1])
 
 
+def _conv_geom(plan: dict) -> dict:
+    return dict(kh=plan["kh"], kw=plan["kw"], stride=plan["stride"],
+                pads=plan["pads"], c_out=plan["c_out"],
+                k_true=plan["k_true"])
+
+
+def binary_conv2d_packed(plan: dict, x_packed: torch.Tensor, *,
+                         backend: str = "auto") -> torch.Tensor:
+    """Packed conv on a ``make_conv_plan`` plan: (B, H, W, Cw) words ->
+    (B, OH, OW, C_out) int32, the exact integer conv of the ±1 tensors
+    with true zero padding (pad-as-(-1) + the C5 correction)."""
+    if _resolve(backend, x_packed) == "torch":
+        return _ref.binary_conv2d_packed_ref(
+            x_packed, plan["w_packed"], plan["correction"],
+            **_conv_geom(plan))
+    return _bconv.binary_conv2d_packed(
+        x_packed.contiguous(), plan["w_packed"], plan["correction"],
+        out_hw=plan["out_hw"], **_conv_geom(plan))
+
+
+def binary_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
+                  padding: str = "SAME",
+                  backend: str = "auto") -> torch.Tensor:
+    """Binary conv on real operands: ``x`` (B, H, W, C_in), ``w`` (C_out,
+    KH, KW, C_in) -> (B, OH, OW, C_out) int32, the integer dots of
+    conv(sign(x), sign(w)) with true zero padding.  The plan is built on
+    the CPU and moved to ``x``'s device; ``x`` is channel-packed through
+    :func:`bitpack`."""
+    plan = _bconv.make_conv_plan(w, input_hw=tuple(x.shape[1:3]),
+                                 stride=stride, padding=padding)
+    plan = {k: v.to(x.device) if isinstance(v, torch.Tensor) else v
+            for k, v in plan.items()}
+    return binary_conv2d_packed(plan, bitpack(x, backend=backend),
+                                backend=backend)
+
+
 def binary_conv2d_bn_sign_packed(plan: dict, folded: dict,
                                  x_packed: torch.Tensor, *,
                                  backend: str = "auto") -> torch.Tensor:
     """Fused conv + BN-sign fold + re-bitpack on a ``make_conv_plan`` plan:
     (B, H, W, Cw) words -> (B, OH, OW, ceil(C_out/32)) words."""
-    geom = dict(kh=plan["kh"], kw=plan["kw"], stride=plan["stride"],
-                pads=plan["pads"], c_out=plan["c_out"],
-                k_true=plan["k_true"])
     if _resolve(backend, x_packed) == "torch":
         return _ref.binary_conv2d_bn_sign_packed_ref(
             x_packed, plan["w_packed"], plan["correction"], folded["tau"],
-            folded["flip"], **geom)
+            folded["flip"], **_conv_geom(plan))
     return _bconv.binary_conv2d_bn_sign_packed(
         x_packed.contiguous(), plan["w_packed"], plan["correction"],
-        folded["tau"], folded["flip"], out_hw=plan["out_hw"], **geom)
+        folded["tau"], folded["flip"], out_hw=plan["out_hw"],
+        **_conv_geom(plan))
 
 
 def bitplane_conv2d_packed(plan: dict, x_uint8: torch.Tensor, *,

@@ -15,6 +15,29 @@ from repro_torch.core import binarize as B
 from repro_torch.kernels.fused_epilogue import bn_sign_bits_to_words
 
 
+def bitpack_ref(x: torch.Tensor) -> torch.Tensor:
+    """Sign-binarize + pack along the last axis: bit = (x >= 0), on the
+    input's own dtype (``binarize.pack_bits``)."""
+    return B.pack_bits(x)
+
+
+def binary_matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Binary GEMM on real operands, independent of the packed path:
+    (M, K) x (N, K) -> (M, N) int32 = sign(a) . sign(b)^T.  The ±1 dot
+    runs in float64, exact for these integers on any device."""
+    a_b = B.sign_pm1(a.to(torch.float64))
+    b_b = B.sign_pm1(b.to(torch.float64))
+    return (a_b @ b_b.T).to(torch.int32)
+
+
+def bitplane_dot_ref(x_uint8: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """First-layer bit-plane dot == the exact integer GEMM of the raw
+    input against sign(W): (M, K) uint8 x (N, K) -> (M, N) int32, in
+    float64 (exact: |dot| <= 255 * K)."""
+    wb = B.sign_pm1(w.to(torch.float64))
+    return (x_uint8.to(torch.float64) @ wb.T).to(torch.int32)
+
+
 def binary_matmul_packed_ref(a_packed: torch.Tensor, b_packed: torch.Tensor,
                              k: int) -> torch.Tensor:
     """Packed binary GEMM (paper eq. 2): (M, Kw) x (N, Kw) -> (M, N) int32."""

@@ -1,12 +1,17 @@
-"""The paper's BinaryNet CNN for CIFAR-10 (§6.3) on PyTorch.
+"""The paper's evaluation networks (§6.2, §6.3) on PyTorch.
 
-``bcnn``: 2x128C3-MP2-2x256C3-MP2-2x512C3-MP2-2x1024FC-10FC, BN + sign
-after every conv/dense (Hubara et al. 2016 §2.3).
+* ``bmlp``: BinaryNet MLP for MNIST (Courbariaux et al. 2016 §2.1):
+  784 -> 3 x [4096 dense, BN, sign] -> 10 dense, BN.
+* ``bcnn``: BinaryNet CNN for CIFAR-10 (Hubara et al. 2016 §2.3):
+  2x128C3-MP2-2x256C3-MP2-2x512C3-MP2-2x1024FC-10FC, BN + sign after
+  every conv/dense.
 
-  init_bcnn(gen, spec)        -> latent float weights + BN
-  bcnn_forward_float(...)     -> the float-sign reference forward
-  pack_bcnn(params, spec)     -> one-time packed inference params (C2)
-  bcnn_forward_packed(...)    -> the packed forward through the kernels
+Each network has:
+
+  init_*(gen, spec)           -> latent float weights + BN
+  *_forward_float(...)        -> the float-sign reference forward
+  pack_*(params, spec)        -> one-time packed inference params (C2)
+  *_forward_packed(...)       -> the packed forward through the kernels
 
 The packed forward equals the float one exactly on the integer dots and
 to float round-off on the final BN logits.
@@ -22,6 +27,135 @@ from repro_torch.core import binarize as B
 from repro_torch.core import binary_layers as L
 from repro_torch.kernels import binary_conv as bconv
 
+
+# ---------------------------------------------------------------------------
+# Shared by both networks
+# ---------------------------------------------------------------------------
+
+def to_device(tree, device):
+    """A copy of a tree of tensors (dicts/lists) on ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    return tree
+
+
+def _check_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
+                           "port on the CPU")
+    return device
+
+
+def _check_dense_stack(dense_stack: str) -> None:
+    if dense_stack not in ("auto", "resident", "per_layer"):
+        raise ValueError(f"unknown dense_stack mode {dense_stack!r}")
+
+
+def _dense_hidden_stack(layers: list, foldeds: list, hp: torch.Tensor, *,
+                        backend: str, dense_stack: str) -> torch.Tensor:
+    """The hidden dense stack shared by both networks, packed in / packed
+    out: one launch for the whole stack when its weights fit the H100
+    residency rule (``'auto'``; ``'resident'`` forces it), one fused
+    GEMM + BN-sign + re-bitpack launch per layer otherwise
+    (``'per_layer'`` forces that)."""
+    _check_dense_stack(dense_stack)
+    resident = {"auto": None, "resident": True,
+                "per_layer": False}[dense_stack]
+    return L.apply_binary_dense_stack_packed(layers, foldeds, hp,
+                                             backend=backend,
+                                             resident=resident)
+
+
+# ---------------------------------------------------------------------------
+# Binary MLP (paper §6.2)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class BMLPSpec:
+    sizes: tuple[int, ...] = (784, 4096, 4096, 4096, 10)
+    nbits_input: int = 8          # MNIST pixels are 8-bit (paper §4.3)
+
+
+def init_bmlp(gen: torch.Generator, spec: BMLPSpec) -> dict:
+    """Latent weights uniform in [-1, 1) from ``gen``, identity BN."""
+    layers, bns = [], []
+    for d_in, d_out in zip(spec.sizes[:-1], spec.sizes[1:]):
+        layers.append(L.init_binary_dense(gen, d_in, d_out))
+        bns.append(L.init_batchnorm(d_out))
+    return {"layers": layers, "bns": bns}
+
+
+def bmlp_forward_float(params: dict, x_uint8: torch.Tensor) -> torch.Tensor:
+    """Reference forward on (B, K) fixed-precision input.  The first
+    layer takes the raw integer input (no sign)."""
+    n = len(params["layers"])
+    h = None
+    for i in range(n):
+        if i == 0:
+            z = L.apply_bitplane_dense_float(params["layers"][i], x_uint8)
+        else:
+            z = L.apply_binary_dense_float(params["layers"][i], h)
+        z = L.apply_batchnorm(params["bns"][i], z)
+        if i < n - 1:
+            h = B.sign_pm1(z)
+    return z
+
+
+def pack_bmlp(params: dict, spec: BMLPSpec, device="cuda") -> dict:
+    """One-time packing of ``init_bmlp`` params, on ``device``; the
+    default device is the card, and without one it raises."""
+    device = _check_device(device)
+    params = to_device(params, "cpu")
+    layers = params["layers"]
+    packed_layers = [L.pack_bitplane_dense(layers[0],
+                                           nbits=spec.nbits_input)]
+    packed_layers += [L.pack_binary_dense(p) for p in layers[1:]]
+    folded = [L.fold_bn_sign(bn) for bn in params["bns"][:-1]]
+    packed = to_device({"layers": packed_layers, "folded": folded,
+                        "bn_out": params["bns"][-1]}, device)
+    packed["spec"] = spec
+    return packed
+
+
+def bmlp_forward_packed_int(packed: dict, x_uint8: torch.Tensor, *,
+                            backend: str = "auto",
+                            dense_stack: str = "auto") -> torch.Tensor:
+    """The packed forward up to the output layer's int32 pre-BN values.
+
+    Layer 0 is the bit-plane dense layer (one ``bitpack`` and one K4 over
+    the stacked planes) and the standalone BN-sign pack (K2); the hidden
+    layers are the dense stack (K6, or K4-fused per layer); the output
+    layer is the int32 GEMM (K4).
+    """
+    layers = packed["layers"]
+    n = len(layers)
+    z = L.apply_bitplane_dense_packed(layers[0], x_uint8, backend=backend)
+    hp = L.apply_bn_sign_folded_packed(packed["folded"][0], z,
+                                       backend=backend)
+    hp = _dense_hidden_stack(layers[1:n - 1], packed["folded"][1:], hp,
+                             backend=backend, dense_stack=dense_stack)
+    return L.apply_binary_dense_prepacked(layers[n - 1], hp, backend=backend)
+
+
+def bmlp_forward_packed(packed: dict, x_uint8: torch.Tensor, *,
+                        backend: str = "auto",
+                        dense_stack: str = "auto") -> torch.Tensor:
+    """Packed forward: (B, K) uint8 -> (B, n_classes) f32 logits.  Every
+    activation after layer 0 stays bit-packed; ``backend`` and
+    ``dense_stack`` as in :func:`bcnn_forward_packed`."""
+    z = bmlp_forward_packed_int(packed, x_uint8, backend=backend,
+                                dense_stack=dense_stack)
+    return L.apply_batchnorm(packed["bn_out"], z)
+
+
+# ---------------------------------------------------------------------------
+# Binary CNN (paper §6.3)
+# ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
 class ConvStage:
@@ -106,25 +240,6 @@ def bcnn_forward_float(params: dict, x_uint8: torch.Tensor,
     return z
 
 
-def to_device(tree, device):
-    """A copy of a tree of tensors (dicts/lists) on ``device``."""
-    if isinstance(tree, torch.Tensor):
-        return tree.to(device)
-    if isinstance(tree, dict):
-        return {k: to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [to_device(v, device) for v in tree]
-    return tree
-
-
-def _check_device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
-                           "port on the CPU")
-    return device
-
-
 def pack_bcnn(params: dict, spec: BCNNSpec, device="cuda") -> dict:
     """One-time packing of ``init_bcnn`` params, on ``device``.
 
@@ -161,27 +276,6 @@ def pack_bcnn(params: dict, spec: BCNNSpec, device="cuda") -> dict:
     return packed
 
 
-def _check_dense_stack(dense_stack: str) -> None:
-    """``'per_layer'`` is this port's hidden stack; ``'auto'`` resolves to
-    it until the single-launch resident stack kernel is ported."""
-    if dense_stack == "resident":
-        raise NotImplementedError(
-            "dense_stack='resident' needs the single-launch dense stack "
-            "kernel, not yet ported (ROADMAP, queue 2: "
-            "_dense_stack_kernel); use 'per_layer' or 'auto'")
-    if dense_stack not in ("auto", "per_layer"):
-        raise ValueError(f"unknown dense_stack mode {dense_stack!r}")
-
-
-def _dense_hidden_stack(layers: list, foldeds: list, hp: torch.Tensor, *,
-                        backend: str, dense_stack: str) -> torch.Tensor:
-    """Hidden dense layers: fused GEMM + BN-sign + re-bitpack per layer,
-    packed in / packed out.  ``dense_stack`` 'auto' means per-layer here."""
-    _check_dense_stack(dense_stack)
-    return L.apply_binary_dense_stack_packed(layers, foldeds, hp,
-                                             backend=backend)
-
-
 def bcnn_forward_packed_int(packed: dict, x_uint8: torch.Tensor, *,
                             backend: str = "auto",
                             dense_stack: str = "auto") -> torch.Tensor:
@@ -190,8 +284,8 @@ def bcnn_forward_packed_int(packed: dict, x_uint8: torch.Tensor, *,
     Stage 0 is the bit-plane conv (K1), an int32 pool when the stage
     pools, and the standalone BN-sign pack (K2).  Stages 1.. are fused
     conv + BN-sign + repack (K3) with bit-domain pooling.  The hidden
-    dense layers are fused GEMM + BN-sign + repack (K4, fused epilogue)
-    and the output layer is the int32 GEMM (K4).
+    dense layers are the dense stack (K6, or K4-fused per layer) and the
+    output layer is the int32 GEMM (K4).
     """
     spec: BCNNSpec = packed["spec"]
     z = L.apply_bitplane_conv2d_packed(packed["convs"][0], x_uint8,
@@ -221,7 +315,7 @@ def bcnn_forward_packed(packed: dict, x_uint8: torch.Tensor, *,
 
     Every inter-layer activation after stage 0 stays bit-packed.
     ``backend``: 'auto' | 'cuda' | 'torch' (see ``kernels.ops``);
-    ``dense_stack``: 'auto' | 'per_layer' ('resident' is not ported yet).
+    ``dense_stack``: 'auto' | 'resident' | 'per_layer'.
     """
     z = bcnn_forward_packed_int(packed, x_uint8, backend=backend,
                                 dense_stack=dense_stack)
@@ -242,29 +336,34 @@ def packed_kind(packed: dict) -> str:
 
 
 def packed_input_shape(packed: dict) -> tuple[int, ...]:
-    """Per-example input shape (no batch axis) of a packed bcnn:
-    ``(H, W, C_in)`` raw uint8."""
+    """Per-example input shape (no batch axis) of a packed network, raw
+    uint8: bcnn ``(H, W, C_in)``, bmlp ``(K,)``."""
     kind = packed_kind(packed)
-    if kind != "bcnn":
-        raise NotImplementedError(f"packed {kind} is not ported yet")
-    spec: BCNNSpec = packed["spec"]
-    return (*spec.input_hw, spec.c_in)
+    if kind == "bcnn":
+        spec: BCNNSpec = packed["spec"]
+        return (*spec.input_hw, spec.c_in)
+    if kind == "bmlp":
+        return (int(packed["layers"][0]["k_true"]),)
+    raise NotImplementedError(f"packed {kind} is not ported yet")
 
 
 def make_packed_forward(packed: dict, *, backend: str = "auto",
                         dense_stack: str = "auto"):
-    """Forward ``fwd(x_uint8) -> logits`` of a packed bcnn, on the device
-    its packed tensors are on; ``x_uint8`` may be a numpy array or a
-    tensor of shape (B, *packed_input_shape(packed))."""
+    """Forward ``fwd(x_uint8) -> logits`` of a packed bcnn or bmlp, on the
+    device its packed tensors are on; ``x_uint8`` may be a numpy array or
+    a tensor of shape (B, *packed_input_shape(packed))."""
     input_shape = packed_input_shape(packed)
     _check_dense_stack(dense_stack)
-    device = packed["convs"][0]["w_packed"].device
+    if packed_kind(packed) == "bcnn":
+        forward, device = bcnn_forward_packed, packed["convs"][0]["w_packed"]
+    else:
+        forward, device = bmlp_forward_packed, packed["layers"][0]["w_packed"]
+    device = device.device
 
     def fwd(x) -> torch.Tensor:
         x = torch.as_tensor(x, device=device)
         if x.dtype != torch.uint8 or tuple(x.shape[1:]) != input_shape:
             raise ValueError(f"expected uint8 (B, {input_shape}) input, got "
                              f"{x.dtype} {tuple(x.shape)}")
-        return bcnn_forward_packed(packed, x, backend=backend,
-                                   dense_stack=dense_stack)
+        return forward(packed, x, backend=backend, dense_stack=dense_stack)
     return fwd

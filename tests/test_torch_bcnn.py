@@ -147,10 +147,9 @@ def test_dense_stack_modes():
     tp = TC.pack_bcnn(tparams, CV.bcnn_spec(spec), device="cpu")
     xt = torch.from_numpy(x)
     auto = TC.bcnn_forward_packed(tp, xt, dense_stack="auto")
-    assert torch.equal(auto, TC.bcnn_forward_packed(
-        tp, xt, dense_stack="per_layer"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TC.bcnn_forward_packed(tp, xt, dense_stack="resident")
+    for mode in ("resident", "per_layer"):
+        assert torch.equal(auto, TC.bcnn_forward_packed(tp, xt,
+                                                        dense_stack=mode))
     with pytest.raises(ValueError, match="dense_stack"):
         TC.make_packed_forward(tp, dense_stack="fused")
     with pytest.raises(ValueError, match="backend"):

@@ -11,6 +11,7 @@ import torch
 from repro_torch.core import binarize as B
 from repro_torch.kernels import binary_conv as bconv
 from repro_torch.kernels import binary_matmul as bmm
+from repro_torch.kernels import bitpack as bp
 from repro_torch.kernels import fused_epilogue as fe
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
@@ -91,6 +92,53 @@ def test_conv_kernels(dev, hw, c_in, c_out, stride, padding):
         ref.bitplane_conv2d_planes_ref(*bargs, nbits=8, **geom))
 
 
+@pytest.mark.parametrize("m,k", [(1, 1), (37, 31), (1, 33), (37, 784),
+                                 (1, 1000), (8192, 8192)])
+def test_bitpack_kernel(dev, m, k):
+    gen = torch.Generator().manual_seed(m + k)
+    x = torch.randn((m, k), generator=gen)
+    x[0, : min(k, 3)] = torch.tensor([-0.0, float("nan"), 0.0])[: min(k, 3)]
+    x = x.to(dev)
+    assert torch.equal(bp.bitpack(x), ref.bitpack_ref(x))
+
+
+@pytest.mark.parametrize("m", [1, 3, 9, 37, 300])
+def test_dense_stack_kernel(dev, m):
+    gen = torch.Generator().manual_seed(m)
+    k = 100
+    x = B.pack_bits(_pm1(gen, m, k)).to(dev)
+    stages = []
+    for n in (40, 96, 10):
+        tau, flip = _bn(gen, n, k, dev)
+        stages.append({"w_packed": B.pack_bits(_pm1(gen, n, k)).to(dev),
+                       "k_true": k, "tau": tau, "flip": flip})
+        k = n
+    got = bmm.binary_dense_stack_packed(
+        x, [s["w_packed"] for s in stages], [s["tau"] for s in stages],
+        [s["flip"] for s in stages], k_trues=[s["k_true"] for s in stages])
+    assert torch.equal(got, ref.binary_dense_stack_packed_ref(stages, x))
+    with pytest.raises(ValueError, match="words wide"):
+        bmm.binary_dense_stack_packed(x, [stages[1]["w_packed"]],
+                                      [stages[1]["tau"]],
+                                      [stages[1]["flip"]], k_trues=[40])
+
+
+@pytest.mark.parametrize("hw,c_in,c_out,stride,padding", [
+    ((16, 16), 128, 256, 1, "SAME"), ((9, 9), 33, 40, 2, "VALID"),
+    ((7, 7), 20, 40, 1, "SAME"), ((9, 9), 64, 10, 2, "SAME")])
+def test_binary_conv_kernel(dev, hw, c_in, c_out, stride, padding):
+    gen = torch.Generator().manual_seed(c_in * c_out + stride)
+    plan = bconv.make_conv_plan(_pm1(gen, c_out, 3, 3, c_in), input_hw=hw,
+                                stride=stride, padding=padding)
+    geom = dict(kh=3, kw=3, stride=stride, pads=plan["pads"], c_out=c_out,
+                k_true=plan["k_true"])
+    x = B.pack_bits(_pm1(gen, 2, *hw, c_in)).to(dev)
+    args = (x, plan["w_packed"].to(dev), plan["correction"].to(dev))
+    assert torch.equal(
+        bconv.binary_conv2d_packed(*args, out_hw=plan["out_hw"], **geom),
+        ref.binary_conv2d_packed_ref(*args, **geom))
+
+
 def test_wrappers_reject_what_they_do_not_take(dev):
     a = torch.zeros((4, 8), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="dtype"):
@@ -117,8 +165,26 @@ def test_forward_launch_counts_and_parity(dev):
     ops.reset_launch_counts()
     got = fwd(x)
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"bitplane_conv": 1, "bn_sign_pack": 1,
-                                   "conv_bn_sign": 2, "xnor_gemm": 1,
-                                   "xnor_gemm_bn_sign": 2}
+    assert {k: v for k, v in ops.launch_counts().items() if v} == {
+        "bitplane_conv": 1, "bn_sign_pack": 1, "conv_bn_sign": 2,
+        "xnor_gemm": 1, "dense_stack": 1}
     want = cnn.bcnn_forward_packed(packed, x.to(dev), backend="torch")
     assert torch.equal(got, want)
+
+
+def test_bmlp_launch_counts_and_parity(dev):
+    spec = cnn.BMLPSpec(sizes=(100, 256, 96, 40, 10))
+    gen = torch.Generator().manual_seed(0)
+    packed = cnn.pack_bmlp(cnn.init_bmlp(gen, spec), spec)
+    x = torch.randint(0, 256, (5, 100), generator=gen, dtype=torch.uint8)
+    want = cnn.bmlp_forward_packed(packed, x.to(dev), backend="torch")
+    for mode, stack in (("auto", {"dense_stack": 1}),
+                        ("per_layer", {"xnor_gemm_bn_sign": 2})):
+        fwd = cnn.make_packed_forward(packed, dense_stack=mode)
+        ops.reset_launch_counts()
+        got = fwd(x)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        assert counts == {"bitpack": 1, "xnor_gemm": 2, "bn_sign_pack": 1,
+                          **stack}
+        assert torch.equal(got, want)

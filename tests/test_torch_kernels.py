@@ -16,6 +16,7 @@ from repro_torch import convert as CV
 from repro_torch.core import binarize as TB
 from repro_torch.kernels import binary_conv as TBC
 from repro_torch.kernels import binary_matmul as TBM
+from repro_torch.kernels import bitpack as TBP
 from repro_torch.kernels import fused_epilogue as TFE
 from repro_torch.kernels import ops as TOPS
 from repro_torch.kernels import ref as TREF
@@ -94,7 +95,53 @@ def test_epilogue_contract_on_ragged_channels():
 
 
 # ---------------------------------------------------------------------------
-# K4 xnor_gemm, both epilogues, and the per-layer dense stack
+# K5 bitpack
+# ---------------------------------------------------------------------------
+
+def _bitpack_input(m, k):
+    """Reals with exact zeros, -0.0 and NaN mixed in."""
+    rng = _rng("bitpack", m, k)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    x.flat[rng.integers(0, m * k, max(1, m * k // 7))] = 0.0
+    x.flat[rng.integers(0, m * k, max(1, m * k // 7))] = -0.0
+    x.flat[rng.integers(0, m * k, max(1, m * k // 11))] = np.nan
+    return x
+
+
+@pytest.mark.parametrize("m,k", [(1, 1), (37, 31), (1, 33), (37, 784),
+                                 (2, 1000)])
+def test_bitpack_matches_jnp(m, k):
+    x = _bitpack_input(m, k)
+    want = JOPS.bitpack(jnp.asarray(x), backend="jnp")
+    _eq(TOPS.bitpack(_t(x)), want)
+    _eq(TREF.bitpack_ref(_t(x)), want)
+    assert CV.words_to_numpy(TOPS.bitpack(_t(np.array([[-0.0, np.nan]],
+                                                      np.float32))))[0, 0] \
+        == 1
+
+
+@pytest.mark.parametrize("m,k", [(3, 33), (37, 100)])
+def test_bitpack_matches_pallas(m, k):
+    x = _bitpack_input(m, k)
+    _eq(TOPS.bitpack(_t(x)), JOPS.bitpack(jnp.asarray(x), backend="pallas"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16,
+                                   torch.float16, torch.int32, torch.uint8])
+def test_bitpack_float32_input_keeps_signs(dtype):
+    """The card path converts any real dtype to the kernel's float32 with
+    every sign kept (float64 underflow and NaN included), so it packs
+    what the plain version packs on the original dtype."""
+    x = torch.from_numpy(_bitpack_input(5, 70).astype(np.float64) * 50)
+    x[0, :4] = torch.tensor([-1e-300, 1e-300, -0.0, float("nan")])
+    x = x.to(dtype)
+    assert torch.equal(TREF.bitpack_ref(TOPS._as_float32(x)),
+                       TREF.bitpack_ref(x))
+    assert TOPS._as_float32(x).dtype == torch.float32
+
+
+# ---------------------------------------------------------------------------
+# K4 xnor_gemm, both epilogues, the dense stack (K6) and binary_matmul
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("m,n,k", [(1, 10, 33), (3, 40, 70), (8, 64, 1024),
@@ -146,6 +193,58 @@ def test_dense_stack_per_layer_matches_jnp():
     _eq(TOPS.binary_dense_stack_packed(tst, _t(x)), want)
     _eq(TREF.binary_dense_stack_packed_ref(tst, _t(x)), want)
     _eq(TOPS.binary_dense_stack_packed([], _t(x)), x)
+
+
+def _stack_case(sizes, k, m, name):
+    rng = _rng(name, sizes, k, m)
+    x = _words(rng, (m, k))
+    jst, tst = [], []
+    for n in sizes:
+        w = _words(rng, (n, k))
+        tau, flip = _bn(rng, n, k)
+        jst.append({"w_packed": jnp.asarray(w), "k_true": k,
+                    "tau": jnp.asarray(tau), "flip": jnp.asarray(flip)})
+        tst.append({"w_packed": _t(w), "k_true": k, "tau": _t(tau),
+                    "flip": _t(flip)})
+        k = n
+    return x, jst, tst
+
+
+@pytest.mark.parametrize("resident", [True, False, None])
+def test_dense_stack_residency_modes_match_jnp(resident):
+    x, jst, tst = _stack_case((96, 40, 10), 64, 9, "stack-modes")
+    want = JOPS.binary_dense_stack_packed(jst, jnp.asarray(x), backend="jnp",
+                                          resident=resident)
+    _eq(TOPS.binary_dense_stack_packed(tst, _t(x), resident=resident), want)
+    _eq(TOPS.binary_dense_stack_packed([], _t(x), resident=resident), x)
+
+
+def test_dense_stack_matches_pallas_resident():
+    """The ragged stack 64 -> 96 -> 40 through the reference's
+    single-launch stack kernel (interpret)."""
+    x, jst, tst = _stack_case((96, 40), 64, 5, "stack-pallas")
+    want = JOPS.binary_dense_stack_packed(jst, jnp.asarray(x),
+                                          backend="pallas", resident=True)
+    for resident in (True, False, None):
+        _eq(TOPS.binary_dense_stack_packed(tst, _t(x), resident=resident),
+            want)
+
+
+@pytest.mark.parametrize("m,n,k", [(1, 10, 33), (6, 40, 100)])
+def test_binary_matmul_matches_reference(m, n, k):
+    rng = _rng("matmul", m, n, k)
+    a = _bitpack_input(m, k)
+    b = rng.normal(size=(n, k)).astype(np.float32)
+    want = JOPS.binary_matmul(jnp.asarray(a), jnp.asarray(b), backend="jnp")
+    _eq(TOPS.binary_matmul(_t(a), _t(b)), want)
+    np.testing.assert_array_equal(
+        TREF.binary_matmul_ref(_t(b), _t(a)).numpy(),
+        np.asarray(JOPS.binary_matmul(jnp.asarray(b), jnp.asarray(a),
+                                      backend="jnp")))
+    if m == 1:
+        _eq(TOPS.binary_matmul(_t(a), _t(b)),
+            JOPS.binary_matmul(jnp.asarray(a), jnp.asarray(b),
+                               backend="pallas"))
 
 
 # ---------------------------------------------------------------------------
@@ -242,6 +341,33 @@ def test_conv_bn_sign_matches_pallas():
         k_true=tplan["k_true"]), want)
 
 
+@pytest.mark.parametrize("hw,c_in,c_out,k,stride,padding", CONV_CASES)
+def test_binary_conv_matches_jnp(hw, c_in, c_out, k, stride, padding):
+    """K7's function (the int32 packed conv) and the real-operand
+    ``binary_conv2d`` against the reference's dispatchers."""
+    jplan, tplan, x, _, _ = _conv_case(hw, c_in, c_out, k, stride, padding)
+    _eq(TOPS.binary_conv2d_packed(tplan, _t(x)),
+        JOPS.binary_conv2d_packed(jplan, jnp.asarray(x), backend="jnp"))
+    rng = _rng("conv-real", hw, c_in, c_out, stride, padding)
+    xr = rng.normal(size=(2, *hw, c_in)).astype(np.float32)
+    w = _pm1(rng, (c_out, k, k, c_in))
+    _eq(TOPS.binary_conv2d(_t(xr), _t(w), stride=stride, padding=padding),
+        JOPS.binary_conv2d(jnp.asarray(xr), jnp.asarray(w), stride=stride,
+                           padding=padding, backend="jnp"))
+
+
+def test_binary_conv_matches_pallas():
+    hw, c_in, c_out, k, stride, padding = (6, 6), 33, 40, 3, 2, "VALID"
+    jplan, tplan, x, _, _ = _conv_case(hw, c_in, c_out, k, stride, padding,
+                                       bsz=1)
+    want = JOPS.binary_conv2d_packed(jplan, jnp.asarray(x), backend="pallas")
+    _eq(TOPS.binary_conv2d_packed(tplan, _t(x)), want)
+    _eq(TREF.binary_conv2d_packed_ref(
+        _t(x), tplan["w_packed"], tplan["correction"], kh=k, kw=k,
+        stride=stride, pads=tplan["pads"], c_out=c_out,
+        k_true=tplan["k_true"]), want)
+
+
 def _bitplane_case(hw, c_out, stride, padding, bsz=2):
     rng = _rng("bitplane", hw, c_out, stride, padding)
     w = _pm1(rng, (c_out, 3, 3, 3))
@@ -303,6 +429,15 @@ def test_cuda_backend_on_cpu_tensor_raises():
         TOPS.binary_matmul_packed(a, a, k_true=96, backend="cuda")
     with pytest.raises(ValueError):
         TOPS.bn_sign_pack(a, torch.zeros(3), torch.ones(3), backend="cuda")
+    with pytest.raises(ValueError):
+        TOPS.bitpack(a.float(), backend="cuda")
+    with pytest.raises(ValueError):
+        TOPS.binary_matmul(a.float(), a.float(), backend="cuda")
+    with pytest.raises(ValueError):
+        TOPS.binary_dense_stack_packed([], a, backend="cuda")
+    with pytest.raises(ValueError):
+        TOPS.binary_conv2d(a.float().reshape(1, 1, 2, 3),
+                           torch.zeros((4, 1, 1, 3)), backend="cuda")
 
 
 def test_kernel_wrappers_take_only_cuda_tensors():
@@ -321,7 +456,13 @@ def test_kernel_wrappers_take_only_cuda_tensors():
             lambda: TBC.bitplane_conv2d_packed(
                 a.reshape(1, 1, 1, 2, 3), a, a, kh=1, kw=1, stride=1,
                 pads=((0, 0), (0, 0)), out_hw=(1, 2), c_out=3, k_true=96,
-                nbits=1)):
+                nbits=1),
+            lambda: TBC.binary_conv2d_packed(
+                a.reshape(1, 1, 2, 3), a, a, kh=1, kw=1, stride=1,
+                pads=((0, 0), (0, 0)), out_hw=(1, 2), c_out=3, k_true=96),
+            lambda: TBP.bitpack(f.reshape(1, 3)),
+            lambda: TBM.binary_dense_stack_packed(a, [a], [f[:2]], [f[:2]],
+                                                  k_trues=[96])):
         with pytest.raises(ValueError, match="CUDA tensors only"):
             call()
 
