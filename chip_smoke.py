@@ -23,10 +23,21 @@ Phases, each printing its lines:
      on 8192x8192 operands (Table 1) and ``ops.binary_conv2d`` on the
      Table-3 layer (16x16, 128 -> 256 channels, 3x3 SAME) at batch 1
      and 256, against ``torch.matmul`` / ``F.conv2d`` on the ±1 tensors;
+   - the packed binary LM at gemma2-9b's full width and depth (42
+     layers), weights from seed 0 made and packed on the card: served
+     through ``make_packed_forward`` at (B, S) = (1, 16) and (8, 16) and
+     run as a (1, 4608) prefill, where the local layers' window masks;
+     stage by stage against the plain versions (every layer at (1, 16)
+     and (8, 16), layers 0 and 1 at (1, 4608));
 5. times (CUDA events): every kernel of each path at batches 1 and 256
-   beside its plain version, its bound and a library call, and each
-   forward per batch and mode, fed from host memory as a request arrives
-   and from the card.
+   beside its plain version, its bound and a library call; the attention
+   kernel at each of its shapes and one local and one global LM layer;
+   and each forward per batch and mode, fed from host memory as a
+   request arrives and from the card.
+
+Every kernel is held to its plain version exactly, but for the attention
+kernel (K8), whose float softmax is held within rtol = atol = 2e-5 (the
+reference's own tolerance between its kernel and its oracle).
 
 The line before the last is the JSON list of kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
@@ -46,13 +57,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate
+FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 # CUDA C++ Programming Guide, arithmetic instruction throughput table:
 # 32-bit population count, 16 results per clock per SM at compute
 # capability 9.0.  XOR and ADD (64 per clock) never bind before it.
 POPC_PER_CLOCK_PER_SM = 16
 
+LM_SERVE = ((1, 16), (8, 16))            # the reference serves max_len 16
+LM_PREFILL = (1, 4608)                   # longer than the 4096 window
+
 # kernel -> (source, the Pallas body it replaces, the path whose batch-256
-# numbers go into the kernels line)
+# numbers, or batch-1 for the attention kernel, go into the kernels line)
 SOURCES = {
     "bitplane_conv": ("src/repro_torch/csrc/bitplane_conv.cu",
                       "src/repro/kernels/binary_conv.py:277", "bcnn auto"),
@@ -71,11 +86,16 @@ SOURCES = {
                     "src/repro/kernels/binary_matmul.py:169", "bmlp auto"),
     "binary_conv": ("src/repro_torch/csrc/conv_bn_sign.cu",
                     "src/repro/kernels/binary_conv.py:249", "binary_conv2d"),
+    "binary_attention": ("src/repro_torch/csrc/binary_attention.cu",
+                         "src/repro/kernels/binary_attention.py:60",
+                         f"attention gemma2-9b local {LM_PREFILL}"),
 }
 MODES = ("auto", "per_layer")
 BATCHES = (1, 8, 64, 256)
 MATMUL_SIZE = 8192                       # Table 1: 8192x8192 operands
 TABLE3_LAYER = dict(hw=(16, 16), c_in=128, c_out=256)
+ATTN_TOL = dict(rtol=2e-5, atol=2e-5)
+ATTN_BIT_SLACK = 4e-5    # |ref| within which a packed attention bit may flip
 
 
 def log(*parts) -> None:
@@ -84,17 +104,20 @@ def log(*parts) -> None:
 
 class Call:
     """One kernel call of a path: the kernel, its plain version on the
-    same inputs, the work it must do and an optional library call.
+    same inputs, the work it must do (bytes, XOR + POPC word-ops and fp32
+    operations) and an optional library call.
 
     ``library_as`` maps the library call's output onto the kernel's, where
     the library computes the kernel's whole function; it is None where
-    the library computes only the contraction (no fused epilogue)."""
+    the library computes only the contraction (no fused epilogue).
+    ``tol`` is None for a kernel held to its plain version exactly, else
+    the ``torch.allclose`` tolerance."""
 
     def __init__(self, name, kernel, plain, nbytes, word_ops, library=None,
-                 library_as=None):
+                 library_as=None, flops=0, tol=None):
         self.name, self.kernel, self.plain = name, kernel, plain
         self.nbytes, self.word_ops, self.library = nbytes, word_ops, library
-        self.library_as = library_as
+        self.library_as, self.flops, self.tol = library_as, flops, tol
 
 
 def _nbytes(*ts) -> int:
@@ -162,24 +185,32 @@ def hidden_stack_calls(h, layers, foldeds, dense_stack):
         return [call], call.plain()
     calls = []
     for s in stages:
-        w, k = s["w_packed"], s["k_true"]
-        library = None
-        if bsz > 16 and w.shape[0] % 8 == 0:
-            # the +-1 int8 tensor-core route, contraction only
-            library = functools.partial(
-                torch._int_mm, B.unpack_bits(h, k, torch.int8),
-                B.unpack_bits(w, k, torch.int8).T)
-        args = (h, w, s["tau"], s["flip"])
-        calls.append(Call(
-            "xnor_gemm_bn_sign",
-            functools.partial(bmm.binary_matmul_bn_sign_packed, *args,
-                              k_true=k),
-            functools.partial(ref.binary_matmul_bn_sign_packed_ref, *args,
-                              k),
-            _nbytes(*args) + bsz * B.packed_width(w.shape[0]) * 4,
-            bsz * w.shape[0] * w.shape[1], library))
+        calls.append(gemm_bn_sign_call(h, s["w_packed"], s["tau"],
+                                       s["flip"], s["k_true"]))
         h = calls[-1].plain()
     return calls, h
+
+
+def gemm_bn_sign_call(h, w, tau, flip, k):
+    """K4 with the fused BN-sign epilogue.  Library (M > 16 and N, K
+    multiples of 8): the ±1 int8 tensor-core GEMM, contraction only."""
+    import torch
+    from repro_torch.core import binarize as B
+    from repro_torch.kernels import binary_matmul as bmm
+    from repro_torch.kernels import ref
+    bsz = h.shape[0]
+    library = None
+    if bsz > 16 and w.shape[0] % 8 == 0 and k % 8 == 0:
+        library = functools.partial(
+            torch._int_mm, B.unpack_bits(h, k, torch.int8),
+            B.unpack_bits(w, k, torch.int8).T)
+    args = (h, w, tau, flip)
+    return Call(
+        "xnor_gemm_bn_sign",
+        functools.partial(bmm.binary_matmul_bn_sign_packed, *args, k_true=k),
+        functools.partial(ref.binary_matmul_bn_sign_packed_ref, *args, k),
+        _nbytes(*args) + bsz * B.packed_width(w.shape[0]) * 4,
+        bsz * w.shape[0] * w.shape[1], library)
 
 
 def bcnn_calls(packed, x, dense_stack):
@@ -339,6 +370,325 @@ def conv_calls(x, w):
     return calls
 
 
+def attention_pairs(b, sq, skv, hq, *, causal=True, window=None,
+                    q_offset=0) -> int:
+    """The (q, k) pairs one attention call must compute: the unmasked ones,
+    and all Skv keys of a row that has none (it averages every key)."""
+    import torch
+    qpos = q_offset + torch.arange(sq, dtype=torch.int64)
+    hi = qpos.clamp(max=skv - 1) if causal else torch.full_like(qpos, skv - 1)
+    lo = ((qpos - window + 1).clamp(min=0) if window
+          else torch.zeros_like(qpos))
+    n = hi - lo + 1
+    return int(torch.where(n > 0, n, skv).sum()) * b * hq
+
+
+def sdpa_library(qp, kp, v, d, *, causal=True, window=None, q_offset=0):
+    """``F.scaled_dot_product_attention`` on the ±1 float32 Q and K with the
+    same boolean mask and scale (GQA by ``enable_gqa``): the same function
+    where there is no softcap.  Returns the call and the map of its (B, H,
+    S, Dv) output onto the kernel's layout."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import binarize as B
+    from repro_torch.kernels import binary_attention as ba
+    sq, skv, dev = qp.shape[1], kp.shape[1], qp.device
+    qpos = q_offset + torch.arange(sq, device=dev)[:, None]
+    kpos = torch.arange(skv, device=dev)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= qpos - kpos < window
+    call = functools.partial(
+        F.scaled_dot_product_attention,
+        B.unpack_bits(qp, d).transpose(1, 2).contiguous(),
+        B.unpack_bits(kp, d).transpose(1, 2).contiguous(),
+        v.transpose(1, 2).contiguous(), attn_mask=mask,
+        scale=ba.attention_scale(d), enable_gqa=qp.shape[2] != kp.shape[2])
+    return call, lambda y: y.transpose(1, 2)
+
+
+def attention_call(qp, kp, v, d, *, library=False, **kw):
+    """K8 on packed Q/K and float32 V, held to its plain version within
+    ATTN_TOL.  Its work: per computed (q, k) pair, Dw word-ops for the
+    score and 2*Dv fp32 operations for P.V."""
+    from repro_torch.kernels import binary_attention as ba
+    from repro_torch.kernels import ref
+    b, sq, hq, dw = qp.shape
+    pairs = attention_pairs(b, sq, kp.shape[1], hq,
+                            causal=kw.get("causal", True),
+                            window=kw.get("window"),
+                            q_offset=kw.get("q_offset", 0))
+    lib, lib_as = (sdpa_library(qp, kp, v, d, **kw) if library
+                   else (None, None))
+    dv = v.shape[-1]
+    return Call("binary_attention",
+                functools.partial(ba.binary_attention_packed, qp, kp, v,
+                                  d_true=d, **kw),
+                functools.partial(ref.binary_attention_packed_ref, qp, kp,
+                                  v, d_true=d, **kw),
+                _nbytes(qp, kp, v) + b * sq * hq * dv * 4, pairs * dw, lib,
+                lib_as, flops=2 * pairs * dv, tol=ATTN_TOL)
+
+
+def attention_cases(gen, dev) -> dict:
+    """K8 at the LM's shapes (gemma2-9b's local and global layers at (1,
+    4608) and at a served (8, 16); a starcoder2-3b layer at (1, 1024),
+    timed against SDPA) and on ragged cases, on random inputs."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import binarize as B
+    g, sc = configs.GEMMA2_9B, configs.STARCODER2_3B
+    gem = (g.num_heads, g.num_kv_heads, g.head_dim, g.head_dim)
+    cap = dict(attn_softcap=g.attn_softcap)
+    (bl, sl), (bs, ss) = LM_PREFILL, LM_SERVE[-1]
+    cases = {
+        f"gemma2-9b local {LM_PREFILL}": ((bl, sl, sl, *gem),
+                                          dict(window=g.window_size, **cap)),
+        f"gemma2-9b global {LM_PREFILL}": ((bl, sl, sl, *gem), cap),
+        f"gemma2-9b local {LM_SERVE[-1]}": ((bs, ss, ss, *gem),
+                                            dict(window=g.window_size,
+                                                 **cap)),
+        "starcoder2-3b (1, 1024)": ((1, 1024, 1024, sc.num_heads,
+                                     sc.num_kv_heads, sc.head_dim,
+                                     sc.head_dim), dict(library=True)),
+        "D 40, Skv 130, q_offset 93": ((2, 37, 130, 6, 2, 40, 40),
+                                       dict(window=5, q_offset=93, **cap)),
+        "rows with no unmasked key": ((1, 12, 20, 4, 2, 40, 40),
+                                      dict(window=3, q_offset=15)),
+        "not causal, window 7": ((1, 9, 70, 2, 1, 33, 33),
+                                 dict(causal=False, window=7)),
+        "Dv 300, dynamic shared memory": ((1, 20, 50, 2, 2, 64, 300),
+                                           dict(attn_softcap=30.0)),
+    }
+    out = {}
+    for name, ((b, sq, skv, hq, hkv, d, dv), kw) in cases.items():
+        qp = B.pack_bits(torch.randn((b, sq, hq, d), generator=gen).to(dev))
+        kp = B.pack_bits(torch.randn((b, skv, hkv, d), generator=gen).to(dev))
+        v = torch.randn((b, skv, hkv, dv), generator=gen).to(dev)
+        out[name] = attention_call(qp, kp, v, d, **kw)
+    return out
+
+
+def lm_model(dev, gen):
+    """gemma2-9b at full width and depth: float weights from seed 0 made on
+    the card, the FFN's BN randomized, packed on the card; the float tree
+    is freed before anything is timed."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+    spec = configs.GEMMA2_9B
+    t0 = time.perf_counter()
+    params = tf.init_binary_lm(torch.Generator(device=dev).manual_seed(0),
+                               spec)
+    randomize_bn([blk["bn1"] for blk in params["blocks"]], gen)
+    n_float = sum(t.numel() for blk in params["blocks"]
+                  for k, t in blk.items() if k != "bn1")
+    n_float += params["embed"].numel() + params["head"].numel()
+    packed = tf.pack_transformer(params, spec, max_len=LM_SERVE[0][1],
+                                 device=dev)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    words = sum(blk[w]["w_packed"].numel() for blk in packed["blocks"]
+                for w in ("wq", "wk", "wv", "wo", "w1", "w2"))
+    log(f"lm: {spec.name}, {spec.num_layers} layers, d_model "
+        f"{spec.d_model}, {spec.num_heads}/{spec.num_kv_heads} heads of "
+        f"{spec.head_dim}, d_ff {spec.d_ff}, vocab {spec.vocab_size}: "
+        f"{n_float} float parameters made and packed on the card in "
+        f"{time.perf_counter() - t0:.1f} s; packed layers {words * 4} bytes, "
+        f"packed head {packed['head']['w_packed'].numel() * 4}, float32 "
+        f"embedding {packed['embed'].numel() * 4}")
+    return spec, packed
+
+
+def attention_bit_flips(what, got, want) -> int:
+    """Packed attention bits of the kernel path against the plain path's:
+    the number that differ, each only where the plain value lies within
+    ATTN_BIT_SLACK of 0."""
+    rows = got.shape[0] * got.shape[1]
+    w = want.reshape(rows, -1)
+    differ = (got.reshape(rows, -1) >= 0) != (w >= 0)
+    n = int(differ.sum())
+    if n and not bool((w[differ].abs() <= ATTN_BIT_SLACK).all()):
+        raise AssertionError(f"{what}: a packed attention bit differs where "
+                             f"the plain value is farther than "
+                             f"{ATTN_BIT_SLACK} from 0")
+    return n
+
+
+def lm_stage_check(what, packed, tokens, n_layers=None):
+    """The forward stage by stage against the plain versions on the card:
+    each layer's first half on the plain path's residual (q, k, v equal,
+    the attention output within ATTN_TOL, packed bits by the slack rule),
+    its second half on the plain path's residual and attention output (the
+    next residual equal), then the head.  Returns the number of differing
+    attention bits and the plain logits (None when ``n_layers`` cuts the
+    walk short)."""
+    from repro_torch.models import transformer as tf
+    meta = packed["meta"]
+    x = tf.embed(packed, tokens)
+    flips = 0
+    worst = 0.0
+    blocks = packed["blocks"][:n_layers]
+    for i, (blk, kind) in enumerate(zip(blocks, meta["kinds"])):
+        window = tf.layer_window(meta, kind)
+        want = tf.attention_half(blk, meta, x, window=window,
+                                 backend="torch")
+        got = tf.attention_half(blk, meta, x, window=window, backend="cuda")
+        for name, a, b in zip("qkv", got[:3], want[:3]):
+            check_equal(f"{what} layer {i} {name}", a, b)
+        worst = max(worst, check_close(f"{what} layer {i} attention",
+                                       got[3], want[3], ATTN_TOL))
+        flips += attention_bit_flips(f"{what} layer {i}", got[3], want[3])
+        x_next = tf.update_half(blk, meta, x, want[3], backend="torch")
+        check_equal(f"{what} layer {i} residual",
+                    tf.update_half(blk, meta, x, want[3], backend="cuda"),
+                    x_next)
+        x = x_next
+    want = None
+    if n_layers is None:
+        want = tf.head_logits(packed, x, backend="torch")
+        check_equal(f"{what} head", tf.head_logits(packed, x, backend="cuda"),
+                    want)
+    log(f"  {what}: q, k, v and residuals equal; attention outputs within "
+        f"{ATTN_TOL} (max |diff| {worst:.3g}); {flips} packed attention "
+        f"bits differ, each within {ATTN_BIT_SLACK} of 0")
+    return flips, want
+
+
+def lm_path(drv, spec, packed, gen, dev) -> dict:
+    """Serve the packed LM through ``make_packed_forward`` at LM_SERVE and
+    run the LM_PREFILL forward, with the launch counts of each; then the
+    stage-by-stage check and the logits.  Returns the ids used."""
+    import torch
+    from repro_torch.models import cnn
+    from repro_torch.models import transformer as tf
+    n = spec.num_layers
+    expect = {"bitpack": 5 * n + 1, "xnor_gemm": 5 * n + 1,
+              "xnor_gemm_bn_sign": n, "binary_attention": n}
+    fwd = cnn.make_packed_forward(packed)
+    tokens, logits = {}, {}
+    for b, s in LM_SERVE:
+        tokens[b, s] = torch.randint(0, spec.vocab_size, (b, s),
+                                     generator=gen)    # int64, host memory
+        logits[b, s] = drv.run(f"lm serve ({b}, {s})",
+                               lambda: fwd(tokens[b, s]), expect)
+    b, s = LM_PREFILL
+    tokens[b, s] = torch.randint(0, spec.vocab_size, (b, s),
+                                 generator=gen).to(dev)
+    logits[b, s] = drv.run(
+        f"lm prefill ({b}, {s})",
+        lambda: tf.transformer_forward_packed(packed, tokens[b, s]), expect)
+    for (b, s), out in logits.items():
+        if out.shape != (b, spec.vocab_size) or \
+                not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"lm ({b}, {s}): logits not finite or of "
+                                 f"the wrong shape {tuple(out.shape)}")
+    log(f"main path lm {spec.name}: served at {LM_SERVE} and run at "
+        f"{LM_PREFILL}, launches per forward {expect}; logits finite, "
+        f"(B, {spec.vocab_size})")
+    for b, s in LM_SERVE:
+        flips, want = lm_stage_check(f"lm ({b}, {s})", packed,
+                                     tokens[b, s].to(dev))
+        if flips == 0:
+            check_equal(f"lm ({b}, {s}) logits", logits[b, s], want)
+            log(f"main path lm ({b}, {s}): every layer's stages and the "
+                f"logits equal the plain path's")
+        else:
+            log(f"main path lm ({b}, {s}): every layer's stages hold; "
+                f"{flips} attention bits flip near 0, so the logits are "
+                f"not compared whole")
+    b, s = LM_PREFILL
+    lm_stage_check(f"lm ({b}, {s}) layers 0 (local) and 1 (global)", packed,
+                   tokens[b, s], n_layers=2)
+    return tokens
+
+
+def lm_layer_calls(packed, x, i):
+    """Layer ``i``'s kernel calls in the forward's order, on the inputs the
+    forward gives them (walked with the plain versions): bitpack, K4 x3
+    (Q, K, V), bitpack x2 (q, k), K8, bitpack, K4 (O), bitpack, K4-fused
+    (FFN up), K4 (FFN down).  Returns the calls and the next residual."""
+    from repro_torch.models import transformer as tf
+    meta, blk = packed["meta"], packed["blocks"][i]
+    d, hq, hkv, hd, f = (meta["d_model"], meta["num_heads"],
+                         meta["num_kv_heads"], meta["head_dim"], meta["d_ff"])
+    b, s = x.shape[:2]
+    calls = [bitpack_call(x.reshape(b * s, d))]
+    xp = calls[-1].plain()
+    q, k, v = [], [], []
+    for w, out in (("wq", q), ("wk", k), ("wv", v)):
+        calls.append(gemm_call(xp, blk[w]["w_packed"], d))
+        out.append(calls[-1].plain())
+    calls.append(bitpack_call(q[0].reshape(-1, hd).float()))
+    qp = calls[-1].plain().reshape(b, s, hq, -1)
+    calls.append(bitpack_call(k[0].reshape(-1, hd).float()))
+    kp = calls[-1].plain().reshape(b, s, hkv, -1)
+    calls.append(attention_call(
+        qp, kp, v[0].reshape(b, s, hkv, hd).float() * (1.0 / d), hd,
+        window=tf.layer_window(meta, meta["kinds"][i]),
+        attn_softcap=meta["attn_softcap"]))
+    attn = calls[-1].plain()
+    calls.append(bitpack_call(attn.reshape(b * s, hq * hd)))
+    calls.append(gemm_call(calls[-1].plain(), blk["wo"]["w_packed"],
+                           hq * hd))
+    x = x + calls[-1].plain().reshape(b, s, d).float() * (1.0 / (hq * hd))
+    calls.append(bitpack_call(x.reshape(b * s, d)))
+    calls.append(gemm_bn_sign_call(calls[-1].plain(), blk["w1"]["w_packed"],
+                                   blk["fold1"]["tau"], blk["fold1"]["flip"],
+                                   d))
+    calls.append(gemm_call(calls[-1].plain(), blk["w2"]["w_packed"], f))
+    x = x + calls[-1].plain().reshape(b, s, d).float() * (1.0 / f)
+    return calls, x
+
+
+def lm_head_calls(packed, x):
+    """The head's calls: bitpack of the last token, K4 over the vocab."""
+    calls = [bitpack_call(x[:, -1].contiguous())]
+    return calls + [gemm_call(calls[0].plain(), packed["head"]["w_packed"],
+                              packed["meta"]["d_model"])]
+
+
+def time_lm(packed, tokens, popc_per_s, dev) -> dict:
+    """Per kernel, one local and one global layer and the head at a served
+    (8, 16) and at the (1, 4608) prefill; then the forwards."""
+    from repro_torch.models import cnn
+    from repro_torch.models import transformer as tf
+    rows = {}
+    n = len(packed["blocks"])
+    for bs in (LM_SERVE[-1], LM_PREFILL):
+        x = tf.embed(packed, tokens[bs].to(dev))
+        big = bs == LM_PREFILL
+        for i, kind in enumerate(packed["meta"]["kinds"][:2]):
+            calls, x = lm_layer_calls(packed, x, i)
+            rows[bs, kind] = kernel_table(calls, popc_per_s,
+                                          kernel_reps=5 if big else 20,
+                                          plain_reps=1 if big else 3)
+            log_table(f"lm {bs} layer {i} ({kind}, x{n // 2} per forward)",
+                      rows[bs, kind])
+        rows[bs, "head"] = kernel_table(lm_head_calls(packed, x), popc_per_s,
+                                        kernel_reps=20, plain_reps=3)
+        log_table(f"lm {bs} head", rows[bs, "head"])
+    fwd = cnn.make_packed_forward(packed)
+    for b, s in LM_SERVE + (LM_PREFILL,):
+        host = tokens[b, s].cpu()
+        card = host.to(dev)
+        if (b, s) == LM_PREFILL:
+            ms_host = time_ms(lambda: tf.transformer_forward_packed(
+                packed, host), reps=1, warmup=0)
+            ms = time_ms(lambda: tf.transformer_forward_packed(packed, card),
+                         reps=2, warmup=0)
+        else:
+            ms_host = time_ms(lambda: fwd(host), reps=10)
+            ms = time_ms(lambda: fwd(card), reps=10)
+        log(f"forward lm ({b}, {s}): {ms_host:.5g} ms from host memory "
+            f"({b * s / ms_host * 1e3:.6g} tokens/s), {ms:.5g} ms with the "
+            f"ids already on the card ({b * s / ms * 1e3:.6g} tokens/s)")
+    return rows
+
+
 def time_ms(fn, reps: int, warmup: int = 1) -> float:
     """Mean ms per call over ``reps`` calls, CUDA events, after warm-up."""
     import torch
@@ -365,15 +715,53 @@ def check_equal(what: str, got, want) -> None:
                              f"{tuple(got.shape)} vs {tuple(want.shape)})")
 
 
+def check_close(what: str, got, want, tol) -> float:
+    """``got`` within ``tol`` of ``want`` (finite, same shape); returns the
+    largest absolute difference."""
+    import torch
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.isfinite(got).all() or \
+            not torch.allclose(got, want, **tol):
+        err = ((got - want).abs().max().item() if got.shape == want.shape
+               else float("nan"))
+        raise AssertionError(f"{what}: kernel disagrees with its plain "
+                             f"version beyond {tol} (max |diff| {err}, "
+                             f"shapes {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)})")
+    return (got - want).abs().max().item()
+
+
+def check_call(what: str, c, got, want) -> float:
+    """One call's kernel output against its plain version's: exact, or
+    within the call's tolerance; returns the largest absolute error."""
+    import torch
+    if c.tol is None:
+        check_equal(what, got, want)
+        return float((got.to(torch.int64) - want.to(torch.int64))
+                     .abs().max()) if got.numel() else 0.0
+    return check_close(what, got, want, c.tol)
+
+
+def check_library(what: str, c, want) -> None:
+    """The library call's output against the plain version's, where the
+    library computes the kernel's function."""
+    if c.library_as is None:
+        return
+    got = c.library_as(c.library())
+    if c.tol is None:
+        check_equal(f"{what}: {c.name} library call", got, want)
+    else:  # a float softmax in another order: layout faults show as O(1)
+        check_close(f"{what}: {c.name} library call", got, want,
+                    dict(rtol=1e-4, atol=1e-4))
+
+
 def check_calls(what: str, calls) -> None:
     """Each call's kernel against its plain version (and the library call,
     where it computes the kernel's function)."""
     for c in calls:
         want = c.plain()
-        check_equal(f"{what}: {c.name}", c.kernel(), want)
-        if c.library_as is not None:
-            check_equal(f"{what}: {c.name} library call",
-                        c.library_as(c.library()), want)
+        check_call(f"{what}: {c.name}", c, c.kernel(), want)
+        check_library(what, c, want)
 
 
 def ragged_checks(gen, dev) -> list[str]:
@@ -496,28 +884,29 @@ def kernel_table(calls, popc_per_s, kernel_reps, plain_reps):
     rows = {}
     for c in calls:
         got, want = c.kernel(), c.plain()
-        check_equal(c.name, got, want)
         r = rows.setdefault(c.name, {"launches_per_forward": 0, "ms": 0.0,
                                      "plain_ms": 0.0, "bytes": 0,
-                                     "word_ops": 0, "library_ms": 0.0,
-                                     "max_abs_err": 0})
-        r["max_abs_err"] = max(r["max_abs_err"], int(
-            (got.to(torch.int64) - want.to(torch.int64)).abs().max()))
+                                     "word_ops": 0, "flops": 0,
+                                     "library_ms": 0.0, "max_abs_err": 0})
+        r["max_abs_err"] = max(r["max_abs_err"],
+                               check_call(c.name, c, got, want))
+        del got
         r["launches_per_forward"] += 1
         r["ms"] += time_ms(c.kernel, kernel_reps)
         r["plain_ms"] += time_ms(c.plain, plain_reps, warmup=0)
         r["bytes"] += c.nbytes
         r["word_ops"] += c.word_ops
-        if c.library_as is not None:
-            check_equal(f"{c.name} library call", c.library_as(c.library()),
-                        want)
+        r["flops"] += c.flops
+        check_library("", c, want)
+        del want
         if c.library is None or r["library_ms"] is None:
             r["library_ms"] = None
         else:
             r["library_ms"] += time_ms(c.library, kernel_reps)
     for r in rows.values():
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = r["word_ops"] / popc_per_s * 1e3
+        t_ops = max(r["word_ops"] / popc_per_s,
+                    r["flops"] / FP32_FLOPS_PER_S) * 1e3
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     return rows
@@ -660,7 +1049,8 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     for src, text in _build.ptxas_report().items():
         for line in text.splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if "registers" in line or "Compiling entry" in line or \
+                    "spill" in line:
                 log(f"  ptxas {src}: {line.split('ptxas info    :')[-1].strip()}")
 
     # the networks, the layer operands and every path's inputs
@@ -707,6 +1097,12 @@ def main() -> int:
         "F.conv2d on the ±1 tensors, TF32 off)")
     for what in ragged_checks(gen, dev):
         log(f"kernels: {what} bit-exact")
+    attention = attention_cases(gen, dev)
+    for what, call in attention.items():
+        check_calls(f"attention {what}", [call])
+        log(f"kernels: binary_attention {what} within {ATTN_TOL} of its "
+            f"plain version" + (" (and SDPA within 1e-4)"
+                                if call.library else ""))
     stack_bytes = {
         "bcnn": bmm.dense_stack_bytes(
             [p["w_packed"] for p in bcnn["denses"][:-1]]),
@@ -754,6 +1150,8 @@ def main() -> int:
     log(f"main path layer entry points: ops.binary_matmul {MATMUL_SIZE}^2 "
         f"(bitpack x2, K4 x1), ops.binary_conv2d Table-3 layer at batch 1 "
         f"and 256 (bitpack x1, K7 x1), equal to the plain path")
+    lm_spec, lm = lm_model(dev, gen)
+    lm_tokens = lm_path(drv, lm_spec, lm, gen, dev)
     launches = drv.totals
     log(f"main paths: launches in all {launches}")
     missing = [k for k in SOURCES if launches[k] == 0]
@@ -791,18 +1189,28 @@ def main() -> int:
                                reps=1)
         log(f"forward {what} B=256 on the plain versions: {plain_fwd_ms:.5g} "
             f"ms")
+    for what, call in attention.items():
+        if "(" not in what:         # the ragged cases are not timed
+            continue
+        big = str(LM_PREFILL) in what
+        rows["attention " + what, 1] = kernel_table(
+            [call], popc_per_s, kernel_reps=5 if big else 20,
+            plain_reps=1 if big else 3)
+        log_table(f"attention {what}", rows["attention " + what, 1])
+    time_lm(lm, lm_tokens, popc_per_s, dev)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     kernels = []
     for k, (source, replaces, home) in SOURCES.items():
-        r = rows[home, 256][k]
+        batch = 256 if (home, 256) in rows else 1
+        r = rows[home, batch][k]
         kernels.append({
             "name": k, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[k],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "path": home, "batch": 256,
+            "path": home, "batch": batch,
             "launches_per_forward": r["launches_per_forward"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

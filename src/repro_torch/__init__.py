@@ -1,5 +1,5 @@
-"""Espresso's packed BMLP and BCNN forwards on PyTorch and hand-written
-CUDA kernels.
+"""Espresso's packed BMLP and BCNN forwards, and the packed binary LM
+(``models/transformer.py``), on PyTorch and hand-written CUDA kernels.
 
 The port of ``src/repro`` (JAX + Pallas) to an NVIDIA Hopper card.  It
 keeps the reference's word layout, so packed tensors compare word for
@@ -9,7 +9,8 @@ bit pattern of the reference's ``uint32`` arrays; the CUDA kernels read
 them as ``uint32_t``.
 
 Entry points run on the card unless the caller asks for the CPU
-(``pack_bcnn(..., device="cpu")``, ``pack_bmlp(..., device="cpu")``); on
+(``pack_bcnn(..., device="cpu")``, ``pack_bmlp(..., device="cpu")``,
+``pack_transformer(..., device="cpu")``); on
 the CPU the dispatchers of ``kernels/ops.py`` run each kernel's plain
 PyTorch version, and the kernel wrappers themselves take CUDA tensors
 only.  This package imports

@@ -11,13 +11,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.configs import LMSpec
 from repro_torch.models import cnn
 
 
 def params_to_torch(tree):
     """A reference parameter tree (dicts/lists of arrays, e.g. the output of
-    ``repro.models.cnn.init_bcnn`` or ``init_bmlp``) -> the same tree of
-    float32 tensors."""
+    ``repro.models.cnn.init_bcnn`` or ``init_bmlp``, or of
+    ``repro.models.transformer.init_binary_lm``) -> the same tree of float32
+    tensors."""
     if isinstance(tree, dict):
         return {k: params_to_torch(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -52,3 +54,17 @@ def bmlp_spec(ref_spec) -> cnn.BMLPSpec:
     """The port's ``BMLPSpec`` with the fields of a reference spec."""
     return cnn.BMLPSpec(sizes=tuple(ref_spec.sizes),
                         nbits_input=ref_spec.nbits_input)
+
+
+def lm_spec(ref_cfg) -> LMSpec:
+    """The port's ``LMSpec`` with the fields of a reference ``ArchConfig``
+    that the packed LM reads."""
+    return LMSpec(
+        name=ref_cfg.name, num_layers=ref_cfg.num_layers,
+        d_model=ref_cfg.d_model, num_heads=ref_cfg.num_heads,
+        num_kv_heads=ref_cfg.num_kv_heads, head_dim=ref_cfg.head_dim,
+        d_ff=ref_cfg.d_ff, vocab_size=ref_cfg.vocab_size,
+        attention_pattern=tuple(ref_cfg.attention_pattern),
+        window_size=ref_cfg.window_size, attn_softcap=ref_cfg.attn_softcap,
+        moe_d_ff_expert=(None if ref_cfg.moe is None
+                         else ref_cfg.moe.d_ff_expert))

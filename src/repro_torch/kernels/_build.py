@@ -15,7 +15,8 @@ and shared-memory report of each build is kept beside its library
 whether this process built the library or found it built.
 
 Every C entry point takes its pointers and the CUDA stream as
-``void*`` (``ctypes.c_void_p``) and its sizes as ``int``, launches on the
+``void*`` (``ctypes.c_void_p``), its sizes as ``int`` and its scalars as
+``float``, launches on the
 given stream, allocates nothing, and returns ``cudaGetLastError()``;
 :func:`check` raises when that is not 0.
 """
@@ -30,8 +31,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("bitpack", "bitplane_conv", "bn_sign_pack", "conv_bn_sign",
-           "dense_stack", "xnor_gemm")
+SOURCES = ("binary_attention", "bitpack", "bitplane_conv", "bn_sign_pack",
+           "conv_bn_sign", "dense_stack", "xnor_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -124,15 +125,16 @@ def cuda_device(t, name: str):
 def load(name: str, entries: dict) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; ``entries`` maps each
     C function to its argument types (``'p'`` pointer/stream, ``'i'``
-    int)."""
+    int, ``'f'`` float)."""
     lib = _LIBS.get(name)
     if lib is None:
         build_all((name,))
         lib = ctypes.CDLL(str(_lib_path(name)))
+        types = {"p": ctypes.c_void_p, "i": ctypes.c_int,
+                 "f": ctypes.c_float}
         for fn, sig in entries.items():
             f = getattr(lib, fn)
-            f.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int
-                          for c in sig]
+            f.argtypes = [types[c] for c in sig]
             f.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib

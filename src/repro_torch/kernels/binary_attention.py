@@ -1,0 +1,93 @@
+"""Flash-style binary attention on packed Q and K, and its CUDA kernel (K8).
+
+Every QK^T score is the XNOR-popcount identity over sign-binarized Q and
+K packed 32 to a word along head_dim,
+
+    s = (D - 2 * popcount(XOR(q_packed, k_packed))) * D^-1/2,
+
+optionally soft-capped (``cap * tanh(s / cap)``), then masked: causal
+keeps qpos >= kpos (``q_offset`` aligns decode queries), ``window`` keeps
+qpos - kpos < window, and a masked score is the finite ``NEG_INF``.  The
+softmax runs online over KV tiles, so the (Sq, Skv) scores never reach
+device memory, and V stays real and accumulates in float32.  GQA: query
+head h reads KV head h // (Hq // Hkv).
+
+``D^-1/2`` is rounded to float32 once on the host
+(:func:`attention_scale`); the kernel and its plain version
+(``ref.binary_attention_packed_ref``) take the same value.
+
+The wrapper launches the kernel and takes CUDA tensors only;
+``kernels/ops.py`` routes CPU tensors to the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core import binarize as B
+from repro_torch.kernels import _build
+
+# Additive mask value: finite, so a row whose every key is masked averages
+# V uniformly instead of turning to NaN (the reference's constant).
+NEG_INF = -1e30
+
+# csrc/binary_attention.cu holds at most 16 chunks of 32 output dims a lane.
+MAX_DV = 16 * 32
+
+
+def attention_scale(d: int) -> float:
+    """``d ** -0.5`` rounded to float32, the score scale of both the kernel
+    and its plain version."""
+    return float(torch.tensor(d, dtype=torch.float32) ** -0.5)
+
+
+def binary_attention_packed(q_packed: torch.Tensor, k_packed: torch.Tensor,
+                            v: torch.Tensor, *, d_true: int,
+                            causal: bool = True, window: int | None = None,
+                            attn_softcap: float | None = None,
+                            q_offset: int = 0) -> torch.Tensor:
+    """K8: q (B, Sq, Hq, Dw) and k (B, Skv, Hkv, Dw) int32 words, v (B, Skv,
+    Hkv, Dv) float32 -> (B, Sq, Hq, Dv) float32.
+
+    ``d_true`` is the logical head_dim before packing.  ``window`` (a
+    positive int or None), ``attn_softcap`` (positive or None) and
+    ``q_offset`` (>= 0) as in the module docstring.  Adds one to
+    ``binary_attention_packed.launches`` per kernel launch.
+    """
+    dev = _build.cuda_device(q_packed, "q_packed")
+    b, sq, hq, dw = q_packed.shape
+    skv, hkv, dv = k_packed.shape[1], k_packed.shape[2], v.shape[-1]
+    if dw != B.packed_width(d_true) or d_true < 1:
+        raise ValueError(f"d_true={d_true} does not pack into {dw} words")
+    if hkv < 1 or hq % hkv:
+        raise ValueError(f"Hq={hq} not a multiple of Hkv={hkv}")
+    if skv < 1 or not 1 <= dv <= MAX_DV:
+        raise ValueError(f"the kernel takes Skv >= 1 and 1 <= Dv <= "
+                         f"{MAX_DV}; got Skv={skv}, Dv={dv}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be a positive int, got {window!r}")
+    if attn_softcap is not None and not attn_softcap > 0:
+        raise ValueError(f"attn_softcap must be positive, got "
+                         f"{attn_softcap!r}")
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+    pq = _build.require(q_packed, "q_packed", torch.int32, (b, sq, hq, dw),
+                        dev)
+    pk = _build.require(k_packed, "k_packed", torch.int32, (b, skv, hkv, dw),
+                        dev)
+    pv = _build.require(v, "v", torch.float32, (b, skv, hkv, dv), dev)
+    out = torch.empty((b, sq, hq, dv), dtype=torch.float32, device=dev)
+    lib = _build.load("binary_attention",
+                      {"binary_attention": "ppppiiiiiiiiffiiip"})
+    err = lib.binary_attention(
+        pq, pk, pv, out.data_ptr(), b, sq, skv, hq, hkv, dw, dv, d_true,
+        ctypes.c_float(attention_scale(d_true)),
+        ctypes.c_float(attn_softcap or 0.0), int(causal), window or 0,
+        q_offset, _build.stream_of(q_packed))
+    _build.check(err, "binary_attention")
+    binary_attention_packed.launches += 1
+    return out
+
+
+binary_attention_packed.launches = 0

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import binarize as B
+from repro_torch.kernels import binary_attention as _batt
 from repro_torch.kernels import binary_conv as _bconv
 from repro_torch.kernels import binary_matmul as _bmm
 from repro_torch.kernels import bitpack as _bp
@@ -26,6 +27,7 @@ from repro_torch.kernels import ref as _ref
 # Every kernel wrapper of the package by kernel name; each keeps an
 # integer ``launches`` count of its own kernel launches.
 KERNELS = {
+    "binary_attention": _batt.binary_attention_packed,
     "binary_conv": _bconv.binary_conv2d_packed,
     "bitpack": _bp.bitpack,
     "bitplane_conv": _bconv.bitplane_conv2d_packed,
@@ -81,6 +83,35 @@ def bitpack(x: torch.Tensor, *, backend: str = "auto") -> torch.Tensor:
     x2 = _as_float32(x).reshape(-1, x.shape[-1]).contiguous()
     out = _bp.bitpack(x2)
     return out.reshape(*x.shape[:-1], out.shape[-1])
+
+
+def binary_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     causal: bool = True, window: int | None = None,
+                     attn_softcap: float | None = None, q_offset: int = 0,
+                     backend: str = "auto") -> torch.Tensor:
+    """Flash-style binary attention on real operands: q (B, Sq, Hq, D), k
+    (B, Skv, Hkv, D), v (B, Skv, Hkv, Dv) -> (B, Sq, Hq, Dv) float32.
+
+    Q and K are sign-binarized; every score is (D - 2 * popcount) * D^-1/2,
+    soft-capped by ``attn_softcap`` before masking; ``causal`` masks qpos <
+    kpos (``q_offset`` aligns decode queries), ``window`` masks qpos - kpos
+    >= window; the softmax is exact on the plain version and online in the
+    kernel.  ``Hq % Hkv == 0`` groups query heads over KV heads.  On the
+    card, q and k are packed along head_dim by :func:`bitpack` (two
+    launches), then the attention kernel runs (one launch).  ``window``
+    must be a positive int on every backend.
+    """
+    if window is not None and window < 1:
+        raise ValueError(f"window must be a positive int, got {window!r}")
+    if _resolve(backend, q) == "torch":
+        return _ref.binary_attention_ref(q, k, v, causal=causal,
+                                         window=window,
+                                         attn_softcap=attn_softcap,
+                                         q_offset=q_offset)
+    return _batt.binary_attention_packed(
+        bitpack(q, backend=backend), bitpack(k, backend=backend),
+        v.to(torch.float32).contiguous(), d_true=q.shape[-1], causal=causal,
+        window=window, attn_softcap=attn_softcap, q_offset=q_offset)
 
 
 def binary_matmul(a: torch.Tensor, b: torch.Tensor, *,

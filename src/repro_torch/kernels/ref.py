@@ -2,7 +2,8 @@
 
 Each ``*_ref`` function computes, in ordinary tensor ops, exactly the
 function its CUDA kernel computes (bit for bit: every output is integer
-or packed).  The CPU runs them in place of the kernels, and the card
+or packed, but for attention's float softmax, which they compute exactly
+as the reference's oracle does).  The CPU runs them in place of the kernels, and the card
 runs them beside the kernels to check them.  Contractions chunk over rows
 (``binarize.packed_mismatches``), so they also run at the main path's
 full-width shapes on the card.
@@ -12,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import binarize as B
+from repro_torch.kernels.binary_attention import NEG_INF, attention_scale
 from repro_torch.kernels.fused_epilogue import bn_sign_bits_to_words
 
 
@@ -147,3 +149,66 @@ def binary_conv2d_bn_sign_packed_ref(x_packed: torch.Tensor,
                                  stride=stride, pads=pads, c_out=c_out,
                                  k_true=k_true)
     return bn_sign_pack_ref(y, tau, flip)
+
+
+def _attention_pm1(qb: torch.Tensor, kb: torch.Tensor, v: torch.Tensor, *,
+                   scale: float, causal: bool, window: int | None,
+                   attn_softcap: float | None,
+                   q_offset: int) -> torch.Tensor:
+    """Exact-softmax attention over ±1 float32 Q (B, Sq, Hq, D) and K
+    (B, Skv, Hkv, D) and real V (B, Skv, Hkv, Dv), in float32."""
+    sq, hq = qb.shape[1], qb.shape[2]
+    skv, hkv = kb.shape[1], kb.shape[2]
+    if hkv < 1 or hq % hkv:
+        raise ValueError(f"Hq={hq} not a multiple of Hkv={hkv}")
+    g = hq // hkv
+    kb = kb.repeat_interleave(g, dim=2)
+    vf = v.to(torch.float32).repeat_interleave(g, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qb, kb) * scale
+    if attn_softcap is not None:
+        s = attn_softcap * torch.tanh(s / attn_softcap)
+    qpos = q_offset + torch.arange(sq, device=qb.device)[:, None]
+    kpos = torch.arange(skv, device=qb.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=qb.device)
+    if causal:
+        mask = mask & (qpos >= kpos)
+    if window is not None:
+        mask = mask & (qpos - kpos < window)
+    s = torch.where(mask[None, None], s, NEG_INF)
+    # The softmax as the oracle's ``jax.nn.softmax`` takes it: exp of the
+    # max-shifted scores over their sum.  A row with no unmasked key has
+    # every score at NEG_INF and averages V uniformly over the Skv keys.
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vf)
+
+
+def binary_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: int | None = None,
+                         attn_softcap: float | None = None,
+                         q_offset: int = 0) -> torch.Tensor:
+    """Binary attention on real Q (B, Sq, Hq, D), K (B, Skv, Hkv, D) and V
+    (B, Skv, Hkv, Dv): Q and K sign-binarized to ±1, scores scaled by
+    D^-1/2 (``attention_scale``), soft-capped, masked (causal keeps qpos >=
+    kpos with ``q_offset``; ``window`` keeps qpos - kpos < window) to
+    ``NEG_INF``, softmaxed exactly and averaged against V; query head h
+    reads KV head h // (Hq/Hkv).  (B, Sq, Hq, Dv) float32, the reference's
+    oracle (``src/repro/kernels/ref.py:160``)."""
+    return _attention_pm1(
+        B.sign_pm1(q.to(torch.float32)), B.sign_pm1(k.to(torch.float32)), v,
+        scale=attention_scale(q.shape[-1]), causal=causal, window=window,
+        attn_softcap=attn_softcap, q_offset=q_offset)
+
+
+def binary_attention_packed_ref(q_packed: torch.Tensor,
+                                k_packed: torch.Tensor, v: torch.Tensor, *,
+                                d_true: int, causal: bool = True,
+                                window: int | None = None,
+                                attn_softcap: float | None = None,
+                                q_offset: int = 0) -> torch.Tensor:
+    """:func:`binary_attention_ref` on packed Q (B, Sq, Hq, Dw) and K
+    (B, Skv, Hkv, Dw) words, the inputs of the attention kernel (K8)."""
+    return _attention_pm1(
+        B.unpack_bits(q_packed, d_true), B.unpack_bits(k_packed, d_true), v,
+        scale=attention_scale(d_true), causal=causal, window=window,
+        attn_softcap=attn_softcap, q_offset=q_offset)

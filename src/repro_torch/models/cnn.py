@@ -336,34 +336,67 @@ def packed_kind(packed: dict) -> str:
 
 
 def packed_input_shape(packed: dict) -> tuple[int, ...]:
-    """Per-example input shape (no batch axis) of a packed network, raw
-    uint8: bcnn ``(H, W, C_in)``, bmlp ``(K,)``."""
+    """Per-example input shape (no batch axis) of a packed network: bcnn
+    ``(H, W, C_in)`` and bmlp ``(K,)`` raw uint8, transformer
+    ``(seq_len,)`` integer token ids."""
     kind = packed_kind(packed)
     if kind == "bcnn":
         spec: BCNNSpec = packed["spec"]
         return (*spec.input_hw, spec.c_in)
-    if kind == "bmlp":
-        return (int(packed["layers"][0]["k_true"]),)
-    raise NotImplementedError(f"packed {kind} is not ported yet")
+    if kind == "transformer":
+        return (int(packed["meta"]["seq_len"]),)
+    return (int(packed["layers"][0]["k_true"]),)
+
+
+def packed_dense_kw_words(packed: dict) -> int:
+    """Widest dense packed-K extent of the network, in 32-bit words: the
+    K side of the serving route decision, where the widest dense layer
+    decides for the whole forward."""
+    kind = packed_kind(packed)
+    if kind == "transformer":
+        mats = [blk[w] for blk in packed["blocks"]
+                for w in ("wq", "wk", "wv", "wo", "w1", "w2")]
+        mats.append(packed["head"])
+        return max(int(p["w_packed"].shape[1]) for p in mats)
+    layers = packed["denses"] if kind == "bcnn" else packed["layers"]
+    return max(int(p["w_packed"].shape[1]) for p in layers)
+
+
+def _is_integer(dtype: torch.dtype) -> bool:
+    return not (dtype.is_floating_point or dtype.is_complex
+                or dtype == torch.bool)
 
 
 def make_packed_forward(packed: dict, *, backend: str = "auto",
                         dense_stack: str = "auto"):
-    """Forward ``fwd(x_uint8) -> logits`` of a packed bcnn or bmlp, on the
-    device its packed tensors are on; ``x_uint8`` may be a numpy array or
-    a tensor of shape (B, *packed_input_shape(packed))."""
+    """Forward ``fwd(x) -> logits`` of a packed network, on the device its
+    packed tensors are on; ``x`` may be a numpy array or a tensor of shape
+    (B, *packed_input_shape(packed)): uint8 for the bcnn and the bmlp,
+    integer token ids of any integer dtype for the transformer.
+    ``dense_stack`` is validated against the network's own modes."""
+    kind = packed_kind(packed)
     input_shape = packed_input_shape(packed)
-    _check_dense_stack(dense_stack)
-    if packed_kind(packed) == "bcnn":
-        forward, device = bcnn_forward_packed, packed["convs"][0]["w_packed"]
+    if kind == "transformer":
+        from repro_torch.models import transformer as tf
+        tf.check_dense_stack(dense_stack)
+        forward, device = (tf.transformer_forward_packed,
+                           packed["head"]["w_packed"])
+        accepts, want = _is_integer, "integer"
     else:
-        forward, device = bmlp_forward_packed, packed["layers"][0]["w_packed"]
+        _check_dense_stack(dense_stack)
+        if kind == "bcnn":
+            forward, device = (bcnn_forward_packed,
+                               packed["convs"][0]["w_packed"])
+        else:
+            forward, device = (bmlp_forward_packed,
+                               packed["layers"][0]["w_packed"])
+        accepts, want = (lambda dt: dt == torch.uint8), "uint8"
     device = device.device
 
     def fwd(x) -> torch.Tensor:
         x = torch.as_tensor(x, device=device)
-        if x.dtype != torch.uint8 or tuple(x.shape[1:]) != input_shape:
-            raise ValueError(f"expected uint8 (B, {input_shape}) input, got "
+        if not accepts(x.dtype) or tuple(x.shape[1:]) != input_shape:
+            raise ValueError(f"expected {want} (B, {input_shape}) input, got "
                              f"{x.dtype} {tuple(x.shape)}")
         return forward(packed, x, backend=backend, dense_stack=dense_stack)
     return fwd

@@ -1,0 +1,208 @@
+"""The packed binary LM (the reference's ``models/transformer.py:280-419``).
+
+Every projection (Q, K, V, O, the FFN's up and down projections, the LM
+head) is a sign-binarized XNOR-popcount GEMM over packed operands; the
+FFN up-projection keeps the fused BN-sign-repack epilogue, so its int32
+activation never leaves the kernel; attention runs through the binary
+attention kernel (``kernels.ops.binary_attention``).  The residual
+stream and the embedding table stay float; there are no norms, because
+every projection input is sign-binarized at once, which is
+scale-invariant.  Layer kinds: ``'global'`` is causal attention, any
+other kind causal sliding-window attention over ``window_size`` keys.
+
+  init_binary_lm(gen, spec)          -> float weights + BN
+  pack_transformer(params, spec)     -> the packed tree, on the card
+  transformer_forward_packed(...)    -> last-token logits
+
+One layer of the forward is two functions, so that each half can be held
+against the reference on its own: :func:`attention_half` (residual ->
+q, k, v and the attention output) and :func:`update_half` (residual and
+attention output -> the next residual).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs import LMSpec
+from repro_torch.core import binarize as B
+from repro_torch.core import binary_layers as L
+from repro_torch.kernels import ops as kops
+from repro_torch.models.cnn import _check_device, to_device
+
+# The values ``dense_stack`` takes, as in the reference; the per-layer FFN
+# is one fused stage, so there is no stack to make resident and the value
+# is not used.
+DENSE_STACK_MODES = ("auto", "resident", "layered")
+
+# Rows of a weight matrix packed at once: the packing widens bits to int64,
+# so the 256000-row LM head is packed in slices.
+_PACK_ROWS = 16384
+
+
+def _lm_d_ff(spec: LMSpec) -> int:
+    if spec.d_ff > 0:
+        return spec.d_ff
+    if spec.moe_d_ff_expert is not None:
+        return spec.moe_d_ff_expert
+    return spec.d_model
+
+
+def init_binary_lm(gen: torch.Generator, spec: LMSpec, device=None) -> dict:
+    """Float weights for :func:`pack_transformer`, standard normal from
+    ``gen`` on ``device`` (the generator's device by default), one (out,
+    in) matrix per projection; the FFN's BN is the identity."""
+    device = gen.device if device is None else torch.device(device)
+    d, hq, hkv, hd = (spec.d_model, spec.num_heads, spec.num_kv_heads,
+                      spec.head_dim)
+    f = _lm_d_ff(spec)
+
+    def mat(n, m):
+        return torch.randn((n, m), generator=gen, device=device)
+
+    blocks = []
+    for _ in range(spec.num_layers):
+        blocks.append({
+            "wq": mat(hq * hd, d), "wk": mat(hkv * hd, d),
+            "wv": mat(hkv * hd, d), "wo": mat(d, hq * hd),
+            "w1": mat(f, d),
+            "bn1": {k: t.to(device)
+                    for k, t in L.init_batchnorm(f).items()},
+            "w2": mat(d, f),
+        })
+    return {"embed": mat(spec.vocab_size, d),
+            "head": mat(spec.vocab_size, d), "blocks": blocks}
+
+
+def _pack_dense(w: torch.Tensor) -> dict:
+    """``binary_layers.pack_binary_dense``, a slice of rows at a time."""
+    words = torch.cat([B.pack_bits(w[i:i + _PACK_ROWS])
+                       for i in range(0, w.shape[0], _PACK_ROWS)])
+    return {"w_packed": words, "k_true": w.shape[1]}
+
+
+def pack_transformer(params: dict, spec: LMSpec, *, max_len: int = 16,
+                     device="cuda") -> dict:
+    """One-time weight packing for the packed forward, on ``device``.
+
+    It packs on the device the params are on, then moves the packed tree;
+    the default device is the card, and without one it raises.  Returns
+    per-layer packed projections, the folded BN-sign threshold of the FFN
+    up-projection, the float32 embedding table, the packed head and a
+    ``meta`` dict of the shapes and masks the forward reads (``seq_len``
+    fixes the serving example shape).
+    """
+    device = _check_device(device)
+    d, hq, hkv, hd = (spec.d_model, spec.num_heads, spec.num_kv_heads,
+                      spec.head_dim)
+    kinds = tuple(spec.layer_kind(i) for i in range(spec.num_layers))
+    blocks = []
+    for lp in params["blocks"]:
+        blk = {w: _pack_dense(lp[w])
+               for w in ("wq", "wk", "wv", "wo", "w1", "w2")}
+        blk["fold1"] = L.fold_bn_sign(to_device(lp["bn1"],
+                                                lp["w1"].device))
+        blocks.append(to_device(blk, device))
+    return {"blocks": blocks,
+            "embed": params["embed"].to(device, torch.float32),
+            "head": to_device(_pack_dense(params["head"]), device),
+            "meta": {"name": spec.name, "d_model": d, "num_heads": hq,
+                     "num_kv_heads": hkv, "head_dim": hd,
+                     "d_ff": _lm_d_ff(spec), "vocab_size": spec.vocab_size,
+                     "seq_len": max_len, "window_size": spec.window_size,
+                     "attn_softcap": spec.attn_softcap, "kinds": kinds}}
+
+
+def layer_window(meta: dict, kind: str) -> int | None:
+    """The attention window of a layer kind: None for ``'global'``."""
+    return None if kind == "global" else meta["window_size"]
+
+
+def attention_half(blk: dict, meta: dict, x: torch.Tensor, *,
+                   window: int | None, backend: str = "auto"):
+    """First half of a layer: residual x (B, S, D) float32 -> (q, k, v,
+    attn).  q, k, v are the int32 projections, (B*S, Hq*hd) and (B*S,
+    Hkv*hd); attn is the (B, S, Hq, hd) float32 attention output.
+    Launches ``bitpack`` x3, the int32 GEMM x3 and the attention kernel."""
+    d, hq, hkv, hd = (meta["d_model"], meta["num_heads"],
+                      meta["num_kv_heads"], meta["head_dim"])
+    b, s = x.shape[:2]
+    xp = kops.bitpack(x.reshape(b * s, d), backend=backend)
+    q, k, v = (kops.binary_matmul_packed(xp, blk[w]["w_packed"], k_true=d,
+                                         backend=backend)
+               for w in ("wq", "wk", "wv"))
+    # float32 * Python float multiplies by the constant rounded to float32,
+    # as XLA does.
+    attn = kops.binary_attention(
+        q.reshape(b, s, hq, hd).to(torch.float32),
+        k.reshape(b, s, hkv, hd).to(torch.float32),
+        v.reshape(b, s, hkv, hd).to(torch.float32) * (1.0 / d),
+        causal=True, window=window, attn_softcap=meta["attn_softcap"],
+        backend=backend)
+    return q, k, v, attn
+
+
+def update_half(blk: dict, meta: dict, x: torch.Tensor, attn: torch.Tensor,
+                *, backend: str = "auto") -> torch.Tensor:
+    """Second half of a layer: residual x (B, S, D) and attention output
+    (B, S, Hq, hd) -> the next residual.  The output projection, then the
+    FFN: fused up-projection (GEMM + folded BN-sign + re-bitpack) and the
+    down-projection on its packed output.  Launches ``bitpack`` x2, the
+    int32 GEMM x2 and the fused GEMM x1."""
+    d, hq, hd, f = (meta["d_model"], meta["num_heads"], meta["head_dim"],
+                    meta["d_ff"])
+    b, s = x.shape[:2]
+    ap = kops.bitpack(attn.reshape(b * s, hq * hd), backend=backend)
+    o = kops.binary_matmul_packed(ap, blk["wo"]["w_packed"], k_true=hq * hd,
+                                  backend=backend)
+    x = x + o.reshape(b, s, d).to(torch.float32) * (1.0 / (hq * hd))
+    hp = kops.bitpack(x.reshape(b * s, d), backend=backend)
+    h1 = kops.binary_matmul_bn_sign_packed(
+        hp, blk["w1"]["w_packed"], blk["fold1"]["tau"],
+        blk["fold1"]["flip"], k_true=d, backend=backend)
+    y = kops.binary_matmul_packed(h1, blk["w2"]["w_packed"], k_true=f,
+                                  backend=backend)
+    return x + y.reshape(b, s, d).to(torch.float32) * (1.0 / f)
+
+
+def head_logits(packed: dict, x: torch.Tensor, *,
+                backend: str = "auto") -> torch.Tensor:
+    """Last-token logits (B, vocab) float32 from the residual (B, S, D)."""
+    lp = kops.bitpack(x[:, -1], backend=backend)
+    logits = kops.binary_matmul_packed(lp, packed["head"]["w_packed"],
+                                       k_true=packed["meta"]["d_model"],
+                                       backend=backend)
+    return logits.to(torch.float32)
+
+
+def embed(packed: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """The float32 residual (B, S, D) of integer ids (B, S)."""
+    return packed["embed"][tokens.to(device=packed["embed"].device,
+                                     dtype=torch.int64)]
+
+
+def check_dense_stack(dense_stack: str) -> None:
+    if dense_stack not in DENSE_STACK_MODES:
+        raise ValueError(f"unknown dense_stack {dense_stack!r}")
+
+
+def transformer_forward_packed(packed: dict, tokens: torch.Tensor, *,
+                               backend: str = "auto",
+                               dense_stack: str = "auto") -> torch.Tensor:
+    """Packed binary-LM forward: ``tokens`` (B, S) integer ids of any
+    integer dtype -> last-token logits (B, vocab) float32.
+
+    Per layer: ``bitpack`` x5, the int32 GEMM x5, the fused GEMM x1 and
+    the attention kernel x1; the head adds ``bitpack`` x1 and the int32
+    GEMM x1.  ``dense_stack`` is accepted for signature parity with the
+    BMLP and BCNN forwards and validated against
+    :data:`DENSE_STACK_MODES`.
+    """
+    check_dense_stack(dense_stack)
+    meta = packed["meta"]
+    x = embed(packed, tokens)
+    for blk, kind in zip(packed["blocks"], meta["kinds"]):
+        _, _, _, attn = attention_half(blk, meta, x,
+                                       window=layer_window(meta, kind),
+                                       backend=backend)
+        x = update_half(blk, meta, x, attn, backend=backend)
+    return head_logits(packed, x, backend=backend)

@@ -8,7 +8,9 @@ inside the fixture, never at import time.
 import pytest
 import torch
 
+from repro_torch import configs
 from repro_torch.core import binarize as B
+from repro_torch.kernels import binary_attention as batt
 from repro_torch.kernels import binary_conv as bconv
 from repro_torch.kernels import binary_matmul as bmm
 from repro_torch.kernels import bitpack as bp
@@ -16,6 +18,7 @@ from repro_torch.kernels import fused_epilogue as fe
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.models import cnn
+from repro_torch.models import transformer as tf
 
 pytestmark = pytest.mark.cuda
 
@@ -188,3 +191,82 @@ def test_bmlp_launch_counts_and_parity(dev):
         assert counts == {"bitpack": 1, "xnor_gemm": 2, "bn_sign_pack": 1,
                           **stack}
         assert torch.equal(got, want)
+
+
+# (B, Sq, Skv, Hq, Hkv, D, Dv), keyword arguments; the attention kernel is
+# held within rtol = atol = 2e-5 of its plain version (a float softmax in
+# another order; the reference's own tolerance).
+ATTN_TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("shape,kw", [
+    ((2, 8, 8, 4, 2, 16, 16), {}),
+    ((1, 37, 37, 6, 2, 40, 24), dict(window=5, attn_softcap=50.0)),
+    ((2, 3, 19, 4, 4, 64, 32), dict(q_offset=16)),
+    ((2, 37, 130, 6, 2, 40, 40), dict(window=5, q_offset=93,
+                                      attn_softcap=50.0)),
+    ((1, 12, 20, 4, 2, 40, 40), dict(window=3, q_offset=15)),
+    ((1, 9, 70, 2, 1, 33, 33), dict(causal=False, window=7)),
+    ((1, 20, 50, 2, 2, 64, 300), dict(attn_softcap=30.0)),
+    ((1, 300, 300, 16, 8, 256, 256), dict(window=100, attn_softcap=50.0))])
+def test_attention_kernel(dev, shape, kw):
+    b, sq, skv, hq, hkv, d, dv = shape
+    gen = torch.Generator().manual_seed(sq * skv + d)
+    qp = B.pack_bits(torch.randn((b, sq, hq, d), generator=gen)).to(dev)
+    kp = B.pack_bits(torch.randn((b, skv, hkv, d), generator=gen)).to(dev)
+    v = torch.randn((b, skv, hkv, dv), generator=gen).to(dev)
+    got = batt.binary_attention_packed(qp, kp, v, d_true=d, **kw)
+    want = ref.binary_attention_packed_ref(qp, kp, v, d_true=d, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **ATTN_TOL)
+
+
+def test_attention_cuda_backend_refuses_cpu_tensors(dev):
+    q = torch.randn((1, 4, 2, 16))
+    k = torch.randn((1, 4, 1, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.binary_attention(q, k, k, backend="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        batt.binary_attention_packed(B.pack_bits(q), B.pack_bits(k), k,
+                                     d_true=16)
+
+
+def test_lm_launch_counts_and_parity(dev):
+    """Reduced gemma2-9b (4 layers, local and global, softcap) at S = 20,
+    longer than its window of 8: launches per forward, then each half of
+    each layer against the plain path's stage, and the logits."""
+    spec = configs.GEMMA2_9B.reduced()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    packed = tf.pack_transformer(tf.init_binary_lm(gen, spec), spec,
+                                 max_len=20)
+    tokens = torch.randint(0, spec.vocab_size, (2, 20), dtype=torch.int64)
+    fwd = cnn.make_packed_forward(packed)
+    ops.reset_launch_counts()
+    got = fwd(tokens)
+    torch.cuda.synchronize()
+    n = spec.num_layers
+    assert {k: v for k, v in ops.launch_counts().items() if v} == {
+        "bitpack": 5 * n + 1, "xnor_gemm": 5 * n + 1,
+        "xnor_gemm_bn_sign": n, "binary_attention": n}
+    meta = packed["meta"]
+    x = tf.embed(packed, tokens)
+    flips = 0
+    for blk, kind in zip(packed["blocks"], meta["kinds"]):
+        w = tf.layer_window(meta, kind)
+        want = tf.attention_half(blk, meta, x, window=w, backend="torch")
+        have = tf.attention_half(blk, meta, x, window=w, backend="cuda")
+        for a, b in zip(have[:3], want[:3]):
+            assert torch.equal(a, b)
+        torch.testing.assert_close(have[3], want[3], **ATTN_TOL)
+        differ = (have[3] >= 0) != (want[3] >= 0)
+        assert (want[3][differ].abs() <= 4e-5).all()
+        flips += int(differ.sum())
+        x_next = tf.update_half(blk, meta, x, want[3], backend="torch")
+        assert torch.equal(
+            tf.update_half(blk, meta, x, want[3], backend="cuda"), x_next)
+        x = x_next
+    logits = tf.head_logits(packed, x, backend="torch")
+    assert got.shape == logits.shape and torch.isfinite(got).all()
+    if flips == 0:
+        assert torch.equal(got, logits)
