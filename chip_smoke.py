@@ -7,7 +7,9 @@ Phases, each printing its lines:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every CUDA kernel of ``src/repro_torch/csrc``, one ``nvcc``
-   per source in parallel, with the ptxas register/shared-memory report;
+   per source in parallel, with the ptxas register/shared-memory report
+   (a spill in K1 or K4 fails the run), then the tensor cores' 1-bit and
+   int8 ``mma.sync`` peaks (``csrc/mma_probe.cu``), which the bounds use;
 3. kernels: each kernel against its plain PyTorch version on the card,
    bit-exact, at the full-width shapes of every path (batch 8), at the
    layer entry points' shapes and on ragged cases;
@@ -32,8 +34,9 @@ Phases, each printing its lines:
 5. times (CUDA events): every kernel of each path at batches 1 and 256
    beside its plain version, its bound and a library call; the attention
    kernel at each of its shapes and one local and one global LM layer;
-   and each forward per batch and mode, fed from host memory as a
-   request arrives and from the card.
+   each forward per batch and mode, fed from host memory as a request
+   arrives and from the card; and K4 on both sides of
+   ``binary_matmul.SMALL_M_MAX`` at the LM's widths.
 
 Every kernel is held to its plain version exactly, but for the attention
 kernel (K8), whose float softmax is held within rtol = atol = 2e-5 (the
@@ -62,6 +65,15 @@ FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 # 32-bit population count, 16 results per clock per SM at compute
 # capability 9.0.  XOR and ADD (64 per clock) never bind before it.
 POPC_PER_CLOCK_PER_SM = 16
+# H100 SXM int8 tensor cores, dense (NVIDIA's data sheet, at 700 W).  An
+# XNOR contraction can also run as a +-1 int8 product at its true depth,
+# 2 ops per MAC, so its operations bound is the lesser of the two routes.
+INT8_OPS_PER_S = 1979e12
+# NVIDIA publishes no H100 rate for the 1-bit MMA K4 runs on; the script
+# measures its mma.sync peak (csrc/mma_probe.cu) and bounds with that.
+BIT_MACS_PER_B1_MMA = 16 * 8 * 256
+MACS_PER_S8_MMA = 16 * 8 * 32
+SPILL_FREE = ("bitplane_conv", "xnor_gemm")   # ptxas must report 0 spills
 
 LM_SERVE = ((1, 16), (8, 16))            # the reference serves max_len 16
 LM_PREFILL = (1, 4608)                   # longer than the 4096 window
@@ -104,20 +116,26 @@ def log(*parts) -> None:
 
 class Call:
     """One kernel call of a path: the kernel, its plain version on the
-    same inputs, the work it must do (bytes, XOR + POPC word-ops and fp32
-    operations) and an optional library call.
+    same inputs, the work it must do (bytes, XOR + POPC word-ops, the
+    MACs of the same contraction at its true depth, as int8 and as 1-bit
+    MACs, fp32 operations) and an optional library call.
 
     ``library_as`` maps the library call's output onto the kernel's, where
     the library computes the kernel's whole function; it is None where
     the library computes only the contraction (no fused epilogue).
-    ``tol`` is None for a kernel held to its plain version exactly, else
-    the ``torch.allclose`` tolerance."""
+    ``also`` is a second yardstick, timed and printed only (the +-1
+    float32 ``torch.matmul`` beside ``torch._int_mm``).  ``tol`` is None
+    for a kernel held to its plain version exactly, else the
+    ``torch.allclose`` tolerance."""
 
     def __init__(self, name, kernel, plain, nbytes, word_ops, library=None,
-                 library_as=None, flops=0, tol=None):
+                 library_as=None, flops=0, tol=None, macs=0, also=None,
+                 bit_macs=None):
         self.name, self.kernel, self.plain = name, kernel, plain
         self.nbytes, self.word_ops, self.library = nbytes, word_ops, library
         self.library_as, self.flops, self.tol = library_as, flops, tol
+        self.macs, self.also = macs, also
+        self.bit_macs = macs if bit_macs is None else bit_macs
 
 
 def _nbytes(*ts) -> int:
@@ -135,22 +153,36 @@ def bitpack_call(x):
                 _nbytes(x) + m * B.packed_width(k) * 4, 0)
 
 
+def int_mm_allowed(m, n, k) -> bool:
+    """``torch._int_mm``'s shape rule: M > 16, N and K multiples of 8."""
+    return m > 16 and n % 8 == 0 and k % 8 == 0
+
+
 def gemm_call(h, w, k):
-    """K4 with the int32 epilogue.  Library: the ±1 float32 GEMM (TF32
-    off); every dot is an integer below 2^24, so it is exact and computes
-    the kernel's function."""
+    """K4 with the int32 epilogue.  Library: ``torch._int_mm`` on the ±1
+    int8 operands where its shape rule allows (exact int32, the kernel's
+    function), else the ±1 float32 GEMM (TF32 off; every dot is an
+    integer below 2^24, so it is exact too).  The float32 GEMM is timed
+    beside ``_int_mm`` as well."""
     import torch
     from repro_torch.core import binarize as B
     from repro_torch.kernels import binary_matmul as bmm
     from repro_torch.kernels import ref
+    m, n = h.shape[0], w.shape[0]
+    f32 = functools.partial(torch.matmul, B.unpack_bits(h, k),
+                            B.unpack_bits(w, k).T)
+    f32_as = lambda y: y.round().to(torch.int32)   # noqa: E731
+    if int_mm_allowed(m, n, k):
+        library, library_as, also = functools.partial(
+            torch._int_mm, B.unpack_bits(h, k, torch.int8),
+            B.unpack_bits(w, k, torch.int8).T), (lambda y: y), f32
+    else:
+        library, library_as, also = f32, f32_as, None
     return Call("xnor_gemm",
                 functools.partial(bmm.binary_matmul_packed, h, w, k_true=k),
                 functools.partial(ref.binary_matmul_packed_ref, h, w, k),
-                _nbytes(h, w) + h.shape[0] * w.shape[0] * 4,
-                h.shape[0] * w.shape[0] * w.shape[1],
-                functools.partial(torch.matmul, B.unpack_bits(h, k),
-                                  B.unpack_bits(w, k).T),
-                lambda y: y.round().to(torch.int32))
+                _nbytes(h, w) + m * n * 4, m * n * w.shape[1], library,
+                library_as, macs=m * n * k, also=also)
 
 
 def hidden_stack_calls(h, layers, foldeds, dense_stack):
@@ -181,7 +213,9 @@ def hidden_stack_calls(h, layers, foldeds, dense_stack):
             functools.partial(ref.binary_dense_stack_packed_ref, stages, h),
             _nbytes(h, *weights, *taus, *flips)
             + bsz * B.packed_width(n_last) * 4,
-            sum(bsz * w.shape[0] * w.shape[1] for w in weights))
+            sum(bsz * w.shape[0] * w.shape[1] for w in weights),
+            macs=sum(bsz * w.shape[0] * s["k_true"]
+                     for w, s in zip(weights, stages)))
         return [call], call.plain()
     calls = []
     for s in stages:
@@ -200,7 +234,7 @@ def gemm_bn_sign_call(h, w, tau, flip, k):
     from repro_torch.kernels import ref
     bsz = h.shape[0]
     library = None
-    if bsz > 16 and w.shape[0] % 8 == 0 and k % 8 == 0:
+    if int_mm_allowed(bsz, w.shape[0], k):
         library = functools.partial(
             torch._int_mm, B.unpack_bits(h, k, torch.int8),
             B.unpack_bits(w, k, torch.int8).T)
@@ -210,7 +244,7 @@ def gemm_bn_sign_call(h, w, tau, flip, k):
         functools.partial(bmm.binary_matmul_bn_sign_packed, *args, k_true=k),
         functools.partial(ref.binary_matmul_bn_sign_packed_ref, *args, k),
         _nbytes(*args) + bsz * B.packed_width(w.shape[0]) * 4,
-        bsz * w.shape[0] * w.shape[1], library)
+        bsz * w.shape[0] * w.shape[1], library, macs=bsz * w.shape[0] * k)
 
 
 def bcnn_calls(packed, x, dense_stack):
@@ -249,7 +283,9 @@ def bcnn_calls(packed, x, dense_stack):
         * pc["nbits"],
         functools.partial(F.conv2d, F.pad(xf, (pl, pr, pt, pb)),
                           unpacked_conv_weights(pc), stride=pc["stride"]),
-        lambda y: y.permute(0, 2, 3, 1).round().to(torch.int32)))
+        lambda y: y.permute(0, 2, 3, 1).round().to(torch.int32),
+        macs=bsz * oh * ow * pc["c_out"] * pc["k_true"],
+        bit_macs=bsz * oh * ow * pc["c_out"] * pc["k_true"] * pc["nbits"]))
     z = calls[-1].plain()
     if spec.stages[0].pool:
         z = L.maxpool2d(z)
@@ -271,7 +307,8 @@ def bcnn_calls(packed, x, dense_stack):
             functools.partial(ref.binary_conv2d_bn_sign_packed_ref, *args,
                               **geom),
             _nbytes(*args) + bsz * oh * ow * B.packed_width(pc["c_out"]) * 4,
-            bsz * oh * ow * pc["c_out"] * pc["kh"] * pc["kw"] * pc["cw"]))
+            bsz * oh * ow * pc["c_out"] * pc["kh"] * pc["kw"] * pc["cw"],
+            macs=bsz * oh * ow * pc["c_out"] * pc["k_true"]))
         hp = calls[-1].plain()
         if spec.stages[i].pool:
             hp = L.maxpool2d_packed(hp, packed["pool_masks"][i])
@@ -366,7 +403,8 @@ def conv_calls(x, w):
         functools.partial(F.conv2d, F.pad(xf, (pl, pr, pt, pb)),
                           unpacked_conv_weights(plan),
                           stride=plan["stride"]),
-        lambda y: y.permute(0, 2, 3, 1).round().to(torch.int32)))
+        lambda y: y.permute(0, 2, 3, 1).round().to(torch.int32),
+        macs=bsz * oh * ow * plan["c_out"] * plan["k_true"]))
     return calls
 
 
@@ -429,7 +467,7 @@ def attention_call(qp, kp, v, d, *, library=False, **kw):
                 functools.partial(ref.binary_attention_packed_ref, qp, kp,
                                   v, d_true=d, **kw),
                 _nbytes(qp, kp, v) + b * sq * hq * dv * 4, pairs * dw, lib,
-                lib_as, flops=2 * pairs * dv, tol=ATTN_TOL)
+                lib_as, flops=2 * pairs * dv, tol=ATTN_TOL, macs=pairs * d)
 
 
 def attention_cases(gen, dev) -> dict:
@@ -651,7 +689,7 @@ def lm_head_calls(packed, x):
                               packed["meta"]["d_model"])]
 
 
-def time_lm(packed, tokens, popc_per_s, dev) -> dict:
+def time_lm(packed, tokens, rates, dev) -> dict:
     """Per kernel, one local and one global layer and the head at a served
     (8, 16) and at the (1, 4608) prefill; then the forwards."""
     from repro_torch.models import cnn
@@ -663,12 +701,12 @@ def time_lm(packed, tokens, popc_per_s, dev) -> dict:
         big = bs == LM_PREFILL
         for i, kind in enumerate(packed["meta"]["kinds"][:2]):
             calls, x = lm_layer_calls(packed, x, i)
-            rows[bs, kind] = kernel_table(calls, popc_per_s,
+            rows[bs, kind] = kernel_table(calls, rates,
                                           kernel_reps=5 if big else 20,
                                           plain_reps=1 if big else 3)
             log_table(f"lm {bs} layer {i} ({kind}, x{n // 2} per forward)",
                       rows[bs, kind])
-        rows[bs, "head"] = kernel_table(lm_head_calls(packed, x), popc_per_s,
+        rows[bs, "head"] = kernel_table(lm_head_calls(packed, x), rates,
                                         kernel_reps=20, plain_reps=3)
         log_table(f"lm {bs} head", rows[bs, "head"])
     fwd = cnn.make_packed_forward(packed)
@@ -687,6 +725,57 @@ def time_lm(packed, tokens, popc_per_s, dev) -> dict:
             f"({b * s / ms_host * 1e3:.6g} tokens/s), {ms:.5g} ms with the "
             f"ids already on the card ({b * s / ms * 1e3:.6g} tokens/s)")
     return rows
+
+
+def mma_peaks(dev, sms) -> dict:
+    """The mma.sync issue rates of the 1-bit (m16n8k256 .and.popc) and the
+    int8 (m16n8k32) steps on register operands, every SM busy
+    (csrc/mma_probe.cu): ops/s at 2 ops per MAC, best of 3 runs."""
+    import torch
+    from repro_torch.kernels import _build
+    lib = _build.load("mma_probe", {"mma_peak": "iiipp"})
+    blocks, iters = 8 * sms, 4096
+    out = torch.empty(blocks * 256, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    mmas = blocks * 8 * iters * 8          # warps x iterations x chains
+    peaks = {}
+    for key, kind, macs in (("b1_ops", 0, BIT_MACS_PER_B1_MMA),
+                            ("s8_mma_sync_ops", 1, MACS_PER_S8_MMA)):
+        def run():
+            _build.check(lib.mma_peak(kind, blocks, iters, out.data_ptr(),
+                                      stream), "mma_peak")
+        ms = min(time_ms(run, 1) for _ in range(3))
+        peaks[key] = 2 * macs * mmas / (ms * 1e-3)
+    log(f"tensor-core peaks measured (mma.sync on registers): 1-bit "
+        f"m16n8k256 {peaks['b1_ops']:.5g} ops/s, int8 m16n8k32 "
+        f"{peaks['s8_mma_sync_ops']:.5g} ops/s (published int8 dense "
+        f"{INT8_OPS_PER_S:.5g})")
+    return peaks
+
+
+def time_route_edge(gen, dev) -> None:
+    """K4 through its wrapper on both sides of ``SMALL_M_MAX`` at the LM's
+    widths: the XOR + POPC kernel at M = SMALL_M_MAX, the 1-bit
+    tensor-core one at M = SMALL_M_MAX + 1 and 16, each held to the plain
+    version, then timed."""
+    import torch
+    from repro_torch.core import binarize as B
+    from repro_torch.kernels import binary_matmul as bmm
+    from repro_torch.kernels import ref
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n, k in ((3584, 3584), (14336, 3584), (3584, 14336)):
+        w = B.pack_bits(torch.rand((n, k), generator=gen).to(dev) * 2 - 1)
+        times = []
+        for m in (bmm.SMALL_M_MAX, bmm.SMALL_M_MAX + 1, 16):
+            a = B.pack_bits(torch.rand((m, k), generator=gen).to(dev) * 2 - 1)
+            check_equal(f"xnor_gemm M={m} N={n} K={k}",
+                        bmm.binary_matmul_packed(a, w, k_true=k),
+                        ref.binary_matmul_packed_ref(a, w, k))
+            ms = time_ms(lambda: bmm.binary_matmul_packed(a, w, k_true=k), 20)
+            times.append(f"M={m} (route {bmm.gemm_route(m, n, sms)}) "
+                         f"{ms:.5g} ms")
+        log(f"time xnor_gemm at the route edge N={n} K={k}: "
+            + ", ".join(times))
 
 
 def time_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -765,7 +854,8 @@ def check_calls(what: str, calls) -> None:
 
 
 def ragged_checks(gen, dev) -> list[str]:
-    """Ragged shapes: channel and K tails, N 10 and 40, M 1, stride 2."""
+    """Ragged shapes: channel and K tails, N 10 and 40, M 1, stride 2, and
+    the edges of K4's and K1's tiles (GEMM_RAGGED, BITPLANE_RAGGED)."""
     import torch
     from repro_torch.core import binarize as B
     from repro_torch.kernels import binary_conv as bconv
@@ -804,18 +894,25 @@ def ragged_checks(gen, dev) -> list[str]:
                         ref.bitpack_ref(x))
     done.append("bitpack M in (1, 37) x K in (1, 31, 33, 784, 1000), with "
                 "-0.0 and NaN")
-    for m, n, k in ((1, 10, 1000), (3, 10, 33), (1, 40, 8192), (9, 40, 70)):
+    for m, n, k, shift in GEMM_RAGGED:
         a = B.pack_bits(pm1(m, k)).to(dev)
         w = B.pack_bits(pm1(n, k)).to(dev)
-        check_equal(f"xnor_gemm M={m} N={n} K={k}",
+        if shift:           # rows that do not start on 16 bytes
+            a, w = misaligned(a), misaligned(w)
+        route = bmm.gemm_route(m, n, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        what = (f"M={m} N={n} K={k}, route {route}"
+                + (", operands 4 bytes off 16-byte alignment" if shift
+                   else ""))
+        check_equal(f"xnor_gemm {what}",
                     bmm.binary_matmul_packed(a, w, k_true=k),
                     ref.binary_matmul_packed_ref(a, w, k))
         tau, flip = bn(n, k)
-        check_equal(f"xnor_gemm_bn_sign M={m} N={n} K={k}",
+        check_equal(f"xnor_gemm_bn_sign {what}",
                     bmm.binary_matmul_bn_sign_packed(a, w, tau, flip,
                                                      k_true=k),
                     ref.binary_matmul_bn_sign_packed_ref(a, w, tau, flip, k))
-        done.append(f"xnor_gemm(+bn_sign) M={m} N={n} K={k}")
+        done.append(f"xnor_gemm(+bn_sign) {what}")
     for m in (1, 3, 9, 37):
         k = 100
         x = B.pack_bits(pm1(m, k)).to(dev)
@@ -849,19 +946,76 @@ def ragged_checks(gen, dev) -> list[str]:
             *args, out_hw=plan["out_hw"], **geom),
             ref.binary_conv2d_packed_ref(*args, **geom))
         done.append(f"conv_bn_sign and binary_conv {what}")
-        bplan = bconv.make_bitplane_conv_plan(
-            pm1(c_out, 3, 3, 3), input_hw=hw, stride=stride, padding=padding)
-        x8 = torch.randint(0, 256, (2, *hw, 3), generator=gen,
-                           dtype=torch.uint8).to(dev)
-        planes = B.pack_bitplanes_uint8(x8)
-        bargs = (planes, bplan["w_packed"].to(dev), bplan["rowsum"].to(dev))
-        geom["k_true"] = bplan["k_true"]
-        what = f"bitplane_conv {hw} C_out={c_out} s{stride} {padding}"
-        check_equal(what, bconv.bitplane_conv2d_packed(
-            *bargs, out_hw=bplan["out_hw"], nbits=8, **geom),
-            ref.bitplane_conv2d_planes_ref(*bargs, nbits=8, **geom))
-        done.append(what)
+        done.append(bitplane_check(gen, dev, hw, 3, c_out, stride, padding,
+                                   8))
+    for hw, c_in, c_out, stride, padding, nbits in BITPLANE_RAGGED:
+        done.append(bitplane_check(gen, dev, hw, c_in, c_out, stride,
+                                   padding, nbits))
     return done
+
+
+# K4 and K4-fused edges of the redesign's tiling, (M, N, K, misaligned):
+# the small-M route's limit (8) and past it, rows that end inside an m16
+# fragment (15, 17), one and two 64- and 128-row tiles, ragged N (10, 40,
+# 136) and K (1, 31, 33: 1-2 words, not a whole stage), the LM's widths
+# (3584, 14336), and operands whose rows do not start on 16 bytes (the
+# 4-byte cp.async path).
+GEMM_RAGGED = ((1, 10, 1000, False), (3, 10, 33, False),
+               (1, 40, 8192, False), (9, 40, 70, False),
+               (8, 136, 31, False), (9, 136, 3584, False),
+               (15, 136, 31, False), (16, 40, 3584, False),
+               (17, 10, 33, False), (128, 136, 1, False),
+               (129, 40, 14336, False), (129, 10, 31, False),
+               (1, 14336, 14336, False), (16, 14336, 1, False),
+               (4608, 14336, 3584, False), (129, 136, 3584, True),
+               (15, 40, 3584, True), (4608, 136, 33, True),
+               (2048, 4096, 100, True))
+# K1 edges: (hw, C_in, C_out, stride, padding, nbits); the last three
+# exceed a block's shared memory with the full band and 64 channels'
+# weights, and take smaller channel chunks or bands.
+BITPLANE_RAGGED = (((9, 9), 33, 40, 2, "SAME", 1),
+                   ((11, 7), 33, 10, 2, "VALID", 8),
+                   ((9, 9), 3, 40, 2, "SAME", 1),
+                   ((13, 5), 3, 136, 2, "VALID", 8),
+                   ((7, 7), 33, 72, 1, "SAME", 8),
+                   ((32, 32), 256, 64, 1, "SAME", 8),
+                   ((32, 32), 512, 40, 1, "SAME", 8),
+                   ((4, 224), 128, 72, 1, "SAME", 8))
+
+
+def misaligned(t):
+    """A contiguous copy of ``t`` whose data starts 4 bytes past a 16-byte
+    boundary."""
+    import torch
+    flat = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    start = next(i for i in range(4)
+                 if (flat.data_ptr() + 4 * i) % 16 == 4)
+    out = flat[start:start + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def bitplane_check(gen, dev, hw, c_in, c_out, stride, padding, nbits) -> str:
+    """K1 against its plain version on random uint8 input below 2^nbits."""
+    import torch
+    from repro_torch.core import binarize as B
+    from repro_torch.kernels import binary_conv as bconv
+    from repro_torch.kernels import ref
+    w = torch.rand((c_out, 3, 3, c_in), generator=gen) * 2 - 1
+    bplan = bconv.make_bitplane_conv_plan(w, input_hw=hw, stride=stride,
+                                          padding=padding, nbits=nbits)
+    x8 = torch.randint(0, 2 ** nbits, (2, *hw, c_in), generator=gen,
+                       dtype=torch.uint8).to(dev)
+    planes = B.pack_bitplanes_uint8(x8, nbits)
+    bargs = (planes, bplan["w_packed"].to(dev), bplan["rowsum"].to(dev))
+    geom = dict(kh=3, kw=3, stride=stride, pads=bplan["pads"], c_out=c_out,
+                k_true=bplan["k_true"])
+    what = (f"bitplane_conv {hw} C_in={c_in} C_out={c_out} s{stride} "
+            f"{padding} nbits={nbits}")
+    check_equal(what, bconv.bitplane_conv2d_packed(
+        *bargs, out_hw=bplan["out_hw"], nbits=nbits, **geom),
+        ref.bitplane_conv2d_planes_ref(*bargs, nbits=nbits, **geom))
+    return what
 
 
 def randomize_bn(bns, gen) -> None:
@@ -876,7 +1030,7 @@ def randomize_bn(bns, gen) -> None:
         bn["var"] = 0.5 + 1.5 * torch.rand(c, generator=gen)
 
 
-def kernel_table(calls, popc_per_s, kernel_reps, plain_reps):
+def kernel_table(calls, rates, kernel_reps, plain_reps):
     """Per kernel: summed time, plain time, bound and library time over its
     launches in one run of a path (each call checked bit-exact on the
     way; that plain call is the warm-up of its timing)."""
@@ -886,8 +1040,10 @@ def kernel_table(calls, popc_per_s, kernel_reps, plain_reps):
         got, want = c.kernel(), c.plain()
         r = rows.setdefault(c.name, {"launches_per_forward": 0, "ms": 0.0,
                                      "plain_ms": 0.0, "bytes": 0,
-                                     "word_ops": 0, "flops": 0,
-                                     "library_ms": 0.0, "max_abs_err": 0})
+                                     "word_ops": 0, "flops": 0, "macs": 0,
+                                     "bit_macs": 0,
+                                     "library_ms": 0.0, "also_ms": 0.0,
+                                     "max_abs_err": 0})
         r["max_abs_err"] = max(r["max_abs_err"],
                                check_call(c.name, c, got, want))
         del got
@@ -897,29 +1053,66 @@ def kernel_table(calls, popc_per_s, kernel_reps, plain_reps):
         r["bytes"] += c.nbytes
         r["word_ops"] += c.word_ops
         r["flops"] += c.flops
+        r["macs"] += c.macs
+        r["bit_macs"] += c.bit_macs
         check_library("", c, want)
         del want
         if c.library is None or r["library_ms"] is None:
             r["library_ms"] = None
         else:
             r["library_ms"] += time_ms(c.library, kernel_reps)
+        if c.also is None or r["also_ms"] is None:
+            r["also_ms"] = None
+        else:
+            r["also_ms"] += time_ms(c.also, kernel_reps)
     for r in rows.values():
-        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = max(r["word_ops"] / popc_per_s,
-                    r["flops"] / FP32_FLOPS_PER_S) * 1e3
-        r["bound_ms"] = max(t_bytes, t_ops)
-        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        bound_of(r, rates)
     return rows
+
+
+def bound_of(r, rates) -> None:
+    """The least time the card could take for a row's work: the larger of
+    its bytes over the memory rate and its operations over their peak.
+    An XNOR contraction's operations take the fastest route: XOR + POPC
+    word-ops on the POPC pipe, or 2 ops per MAC at the true depth on the
+    int8 tensor cores (published peak) or the 1-bit ones (peak measured
+    by this run); ``ops_route`` says which.  P.V's fp32 operations add
+    their own floor.  ``int8_bound_ms`` and ``popc_bound_ms`` keep the
+    bounds without the 1-bit route and with the POPC route alone."""
+    t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_popc = r["word_ops"] / rates["popc"] * 1e3
+    routes = {"int8 tensor cores": 2 * r["macs"] / INT8_OPS_PER_S * 1e3,
+              "b1 tensor cores (measured peak)":
+                  2 * r["bit_macs"] / rates["b1_ops"] * 1e3}
+    t_xnor, r["ops_route"] = t_popc, "popc"
+    for name, t in routes.items():
+        if r["macs"] and t < t_xnor:
+            t_xnor, r["ops_route"] = t, name
+    t_fp32 = r["flops"] / FP32_FLOPS_PER_S * 1e3
+    r["int8_bound_ms"] = max(t_bytes, min(t_popc, routes["int8 tensor cores"]),
+                             t_fp32)
+    if not r["word_ops"]:
+        r["ops_route"] = "none"
+    if t_fp32 > t_xnor:
+        r["ops_route"] = "fp32 (P.V)"
+    t_ops = max(t_xnor, t_fp32)
+    r["bound_ms"] = max(t_bytes, t_ops)
+    r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    r["popc_bound_ms"] = max(t_bytes, t_popc, t_fp32)
 
 
 def log_table(what, rows) -> None:
     for k, r in rows.items():
         lib = ("null" if r["library_ms"] is None
                else f"{r['library_ms']:.5g}")
+        also = ("" if not r["also_ms"] else
+                f"; the ±1 float32 torch.matmul {r['also_ms']:.5g} ms")
         log(f"time {what} {k}: x{r['launches_per_forward']} per run, "
             f"kernel {r['ms']:.5g} ms, plain {r['plain_ms']:.5g} ms, "
-            f"bound {r['bound_ms']:.5g} ms ({r['bound_by']}), "
-            f"library {lib} ms")
+            f"bound {r['bound_ms']:.5g} ms ({r['bound_by']}; operations by "
+            f"{r['ops_route']}; without the 1-bit route "
+            f"{r['int8_bound_ms']:.5g} ms, the POPC route alone "
+            f"{r['popc_bound_ms']:.5g} ms), library {lib} ms{also}")
 
 
 class Driver:
@@ -1036,10 +1229,10 @@ def main() -> int:
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    popc_per_s = POPC_PER_CLOCK_PER_SM * sms * clock_mhz * 1e6
+    rates = {"popc": POPC_PER_CLOCK_PER_SM * sms * clock_mhz * 1e6}
     log(f"device: {name}; torch {torch.__version__} cuda {torch.version.cuda}"
         f"; {sms} SMs at max {clock_mhz:.0f} MHz -> POPC peak "
-        f"{popc_per_s:.4g}/s")
+        f"{rates['popc']:.4g}/s")
     log(f"nvidia-smi: {smi}")
 
     # 2. build
@@ -1052,6 +1245,12 @@ def main() -> int:
             if "registers" in line or "Compiling entry" in line or \
                     "spill" in line:
                 log(f"  ptxas {src}: {line.split('ptxas info    :')[-1].strip()}")
+            if src in SPILL_FREE and "spill" in line and \
+                    "0 bytes spill stores, 0 bytes spill loads" not in line:
+                raise AssertionError(f"ptxas reports spills in {src}: "
+                                     f"{line.strip()}")
+
+    rates.update(mma_peaks(dev, sms))
 
     # the networks, the layer operands and every path's inputs
     gen = torch.Generator().manual_seed(0)
@@ -1173,10 +1372,10 @@ def main() -> int:
                     bmlp, bmlp_in[b].to(dev), "per_layer")
                     if c.name == "xnor_gemm_bn_sign"]),
                 ("binary_conv2d", conv_calls(conv_x[b], conv_w))):
-            rows[what, b] = kernel_table(calls, popc_per_s, kernel_reps=20,
+            rows[what, b] = kernel_table(calls, rates, kernel_reps=20,
                                          plain_reps=plain_reps)
             log_table(f"{what} B={b}", rows[what, b])
-    mm_rows = kernel_table(matmul_calls(mm_a, mm_b), popc_per_s,
+    mm_rows = kernel_table(matmul_calls(mm_a, mm_b), rates,
                            kernel_reps=3, plain_reps=1)
     log_table(f"binary_matmul {MATMUL_SIZE}^2", mm_rows)
     time_forwards("bcnn", bcnn, bcnn_in)
@@ -1194,10 +1393,11 @@ def main() -> int:
             continue
         big = str(LM_PREFILL) in what
         rows["attention " + what, 1] = kernel_table(
-            [call], popc_per_s, kernel_reps=5 if big else 20,
+            [call], rates, kernel_reps=5 if big else 20,
             plain_reps=1 if big else 3)
         log_table(f"attention {what}", rows["attention " + what, 1])
-    time_lm(lm, lm_tokens, popc_per_s, dev)
+    time_lm(lm, lm_tokens, rates, dev)
+    time_route_edge(gen, dev)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     kernels = []
@@ -1210,6 +1410,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "ops_route": r["ops_route"],
             "path": home, "batch": batch,
             "launches_per_forward": r["launches_per_forward"]})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,70 +1,329 @@
-// K1 bitplane_conv: the first-layer conv on 8 packed bit planes (paper C4).
+// K1 bitplane_conv: the first-layer conv on packed bit planes (paper C4).
 //
-// Replaces: src/repro/kernels/binary_conv.py:_bitplane_conv_kernel
-//           (pallas_call in bitplane_conv2d_packed).
-// Computes: planes (nbits, B, H, W, Cw) words, w (C_out, KH*KW*Cw) words,
-//           rowsum (C_out,) int32 -> out (B, OH, OW, C_out) int32,
-//             out = ((2^n - 1)(k_true + rowsum) - 2 sum_p 2^p mism_p) >> 1,
-//           the exact integer conv of the raw input against sign(W) with
-//           true zero padding.  The value before the shift is even, so the
-//           arithmetic shift halves it exactly.
-// Bound on the H100: operations.  At the BCNN's stage 0 each output reads
-//           nbits*KH*KW*Cw = 72 words and writes 4 bytes, so the POPC pipe
-//           (16 results per clock per SM) binds before memory does.
-// Design:   one warp per output pixel and 32 output channels, lane =
-//           channel.  The input word of a tap is the same for the whole warp
-//           (one broadcast load); each lane walks its own weight row, which
-//           stays in L1 (C_out x 9 words).  The plane loop runs inside the
-//           thread, so the int32 plane sums never leave registers.
+// Replaces: src/repro/kernels/binary_conv.py:277 _bitplane_conv_kernel
+//           (pallas_call at :501, in bitplane_conv2d_packed).
+// Computes: planes (nbits, B, H, W, Cw) words, w (C_out, KH*KW*Cw) words ->
+//           out (B, OH, OW, C_out) int32, the exact integer conv of the raw
+//           input x = sum_p plane_p << p against sign(W), true zero padding.
+//           The TPU kernel gets there by popcounts on each plane,
+//             ((2^n - 1)(k_true + rowsum) - 2 sum_p 2^p mism_p) >> 1,
+//           which equals that conv; this kernel computes the conv itself on
+//           the tensor cores, so the plan's rowsum (which turns the plane
+//           popcounts into it) is not needed here.  The wrapper still takes
+//           and checks it, keeping the TPU kernel's operands.
+// Bound on the H100: the int32 output (at the BCNN's stage 0, batch 256,
+//           256*32*32*128*4 = 134 MB, 0.040 ms at 3.35 TB/s).  The
+//           contraction is K = KH*KW*C_in = 27 deep there, one k32 step.
+// Design:   a block of 4 warps owns a band of R output rows of one image
+//           (R*OW >= 128 pixels) and all C_out channels in chunks of 64.
+//   * Shared memory grows with the band (nbits x rows x W x Cw words and
+//     the decoded bytes) and with a chunk's weights (channels x depth).
+//     Where 64 channels and the full band exceed the card's per-block
+//     limit, the host takes chunks of 32, 16 or 8 channels, then halves R
+//     down to 1 row; a shape that fits in none of these is refused with
+//     kTooLarge, which the wrapper turns into its own error.
+//   * It copies the band's input rows (all nbits planes) into shared
+//     memory with cp.async (16-byte copies where the rows allow), then
+//     decodes them once to uint8, [row][column][channel], with the halo's
+//     zero padding written as 0.
+//   * A table maps each depth d = (tap, c) to its byte offset in that band,
+//     so an A fragment (16 pixels x 32 depths, mma.sync m16n8k32 u8 x s8)
+//     is 16 byte loads per thread; depths past K map to offset 0 against
+//     zero weights.  General shapes loop over depth in steps of 32.
+//   * Each chunk of 64 channels' weights is decoded once per block to +-1
+//     int8, [channel][depth] with a 16-byte pad (no bank conflicts for the
+//     B fragments), tail channels and depths 0.
+//   * Each warp takes 16-pixel tiles: one A fragment per k32 step feeds 8
+//     MMAs (64 channels).  The 16 x 64 int32 result is staged in shared
+//     memory and written with 16-byte stores along the channel axis (4-byte
+//     stores when C_out % 4 != 0); a band's output rows are contiguous.
 #include "common.cuh"
 
 using namespace repro;
 
-__global__ void bitplane_conv_kernel(
-    const uint32_t* __restrict__ planes, const uint32_t* __restrict__ w,
-    const int32_t* __restrict__ rowsum, int32_t* __restrict__ out, int B,
-    int H, int W, int Cw, int C_out, int KH, int KW, int stride, int pad_top,
-    int pad_left, int OH, int OW, int k_true, int nbits) {
-  const int groups = (C_out + kWarp - 1) / kWarp;
-  const long long warp = global_warp();
-  if (warp >= static_cast<long long>(B) * OH * OW * groups) return;
-  const int g = static_cast<int>(warp % groups);
-  long long pix = warp / groups;
-  const int ow = static_cast<int>(pix % OW);
-  pix /= OW;
-  const int oh = static_cast<int>(pix % OH);
-  const int b = static_cast<int>(pix / OH);
-  const int c = g * kWarp + lane_id();
-  if (c >= C_out) return;  // no warp-wide op follows
-  const uint32_t* wrow = w + static_cast<long long>(c) * KH * KW * Cw;
-  const long long image = static_cast<long long>(H) * W * Cw;
-  const long long plane = static_cast<long long>(B) * image;
-  int32_t wacc = 0;
-  for (int p = 0; p < nbits; ++p) {
-    const int mism = tap_mismatch(planes + p * plane + b * image, wrow, H, W,
-                                  Cw, KH, KW, oh * stride - pad_top,
-                                  ow * stride - pad_left);
-    wacc += mism << p;
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / kWarp;
+constexpr int kChunkN = 64;                  // channels per chunk, at most
+constexpr int kStageLd = kChunkN + 8;        // int32 row stride of stage
+constexpr int kMinBandPixels = 128;
+constexpr int kTooLarge = -1;                // no band and chunk fit
+
+struct Geometry {
+  int B, H, W, Cw, C_in, C_out, KH, KW, stride, pad_top, pad_left, OH, OW,
+      nbits;
+  int R, rows_b, Wb, K, Kpad, ws_ld, chunk;
+  size_t raw_bytes, stage_bytes, ws_bytes, off_bytes, xs_bytes;
+
+  __host__ __device__ size_t smem() const {
+    return raw_bytes + stage_bytes + ws_bytes + off_bytes + xs_bytes;
   }
-  const int32_t full = (1 << nbits) - 1;
-  out[((static_cast<long long>(b) * OH + oh) * OW + ow) * C_out + c] =
-      (full * (k_true + rowsum[c]) - 2 * wacc) >> 1;
+};
+
+__host__ __device__ inline size_t round16(size_t x) { return (x + 15) & ~15ull; }
+
+Geometry make_geometry(int B, int H, int W, int Cw, int C_in, int C_out,
+                       int KH, int KW, int stride, int pad_top, int pad_left,
+                       int OH, int OW, int nbits, int R, int chunk) {
+  Geometry g{B, H, W, Cw, C_in, C_out, KH, KW, stride, pad_top, pad_left, OH,
+             OW, nbits};
+  g.R = R;
+  g.chunk = chunk;
+  g.rows_b = (g.R - 1) * stride + KH;
+  g.Wb = (OW - 1) * stride + KW;
+  g.K = KH * KW * C_in;
+  g.Kpad = (g.K + 31) / 32 * 32;
+  g.ws_ld = g.Kpad + 16;
+  g.raw_bytes = round16(static_cast<size_t>(nbits) * g.rows_b * W * Cw * 4);
+  g.stage_bytes = static_cast<size_t>(kWarps) * 16 * kStageLd * 4;
+  g.ws_bytes = round16(static_cast<size_t>(chunk) * g.ws_ld);
+  g.off_bytes = round16(static_cast<size_t>(g.Kpad) * 4);
+  g.xs_bytes = round16(static_cast<size_t>(g.rows_b) * g.Wb * C_in);
+  return g;
 }
 
-extern "C" int bitplane_conv(const void* planes, const void* w,
-                             const void* rowsum, void* out, int B, int H,
-                             int W, int Cw, int C_out, int KH, int KW,
-                             int stride, int pad_top, int pad_left, int OH,
-                             int OW, int k_true, int nbits, void* stream) {
-  const long long warps = static_cast<long long>(B) * OH * OW *
-                          ((C_out + kWarp - 1) / kWarp);
-  if (warps > 0) {
-    bitplane_conv_kernel<<<blocks_for_warps(warps), kBlockThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(planes), static_cast<const uint32_t*>(w),
-        static_cast<const int32_t*>(rowsum), static_cast<int32_t*>(out), B, H,
-        W, Cw, C_out, KH, KW, stride, pad_top, pad_left, OH, OW, k_true,
-        nbits);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mma_u8s8(int32_t (&c)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Four bytes of the band at base + off[0..3], lowest in the lowest byte.
+__device__ __forceinline__ uint32_t gather4(const uint8_t* xs, int base,
+                                            const int* off) {
+  return static_cast<uint32_t>(xs[base + off[0]]) |
+         (static_cast<uint32_t>(xs[base + off[1]]) << 8) |
+         (static_cast<uint32_t>(xs[base + off[2]]) << 16) |
+         (static_cast<uint32_t>(xs[base + off[3]]) << 24);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    bitplane_conv_kernel(const uint32_t* __restrict__ planes,
+                         const uint32_t* __restrict__ w,
+                         int32_t* __restrict__ out, Geometry G) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* raw = reinterpret_cast<uint32_t*>(smem);
+  int32_t* stage = reinterpret_cast<int32_t*>(smem + G.raw_bytes);
+  int8_t* ws = reinterpret_cast<int8_t*>(smem + G.raw_bytes + G.stage_bytes);
+  int* off = reinterpret_cast<int*>(smem + G.raw_bytes + G.stage_bytes +
+                                    G.ws_bytes);
+  uint8_t* xs = reinterpret_cast<uint8_t*>(smem + G.raw_bytes +
+                                           G.stage_bytes + G.ws_bytes +
+                                           G.off_bytes);
+  const int tid = threadIdx.x;
+  const int lane = lane_id();
+  const int warp = tid / kWarp;
+  const int b = blockIdx.y;
+  const int oh0 = blockIdx.x * G.R;
+  const int r_eff = min(G.R, G.OH - oh0);
+  const int P = r_eff * G.OW;
+  const int ih_first = oh0 * G.stride - G.pad_top;
+  const int row_words = G.W * G.Cw;
+
+  // 1. the band's plane rows -> raw[p][rb][iw][k], cp.async
+  const int lo = max(ih_first, 0);
+  const int hi = min(ih_first + G.rows_b, G.H);
+  if (hi > lo) {
+    const int n_words = (hi - lo) * row_words;
+    const bool vec16 = row_words % 4 == 0 &&
+                       (reinterpret_cast<uintptr_t>(planes) & 15) == 0;
+    for (int p = 0; p < G.nbits; ++p) {
+      const uint32_t* src =
+          planes + ((static_cast<long long>(p) * G.B + b) * G.H + lo) *
+                       row_words;
+      uint32_t* dst = raw + (p * G.rows_b + (lo - ih_first)) * row_words;
+      if (vec16) {
+        for (int i = tid * 4; i < n_words; i += kThreads * 4)
+          asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                           smem_addr(dst + i)),
+                       "l"(src + i));
+      } else {
+        for (int i = tid; i < n_words; i += kThreads)
+          asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                           smem_addr(dst + i)),
+                       "l"(src + i));
+      }
+    }
   }
+  asm volatile("cp.async.commit_group;\n" ::);
+  // the depth -> band offset table, while the copies fly
+  for (int d = tid; d < G.Kpad; d += kThreads) {
+    int o = 0;
+    if (d < G.K) {
+      const int tap = d / G.C_in;
+      const int c = d % G.C_in;
+      o = ((tap / G.KW) * G.Wb + tap % G.KW) * G.C_in + c;
+    }
+    off[d] = o;
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+
+  // 2. decode the band once: xs[rb][col][c] = sum_p bit_c(plane p) << p
+  const int band = G.rows_b * G.Wb * G.C_in;
+  for (int i = tid; i < band; i += kThreads) {
+    const int c = i % G.C_in;
+    const int col = (i / G.C_in) % G.Wb;
+    const int rb = i / (G.C_in * G.Wb);
+    const int ih = ih_first + rb;
+    const int iw = col - G.pad_left;
+    uint32_t v = 0;
+    if (ih >= 0 && ih < G.H && iw >= 0 && iw < G.W) {
+      const uint32_t* px = raw + (rb * G.W + iw) * G.Cw + c / 32;
+      for (int p = 0; p < G.nbits; ++p)
+        v |= ((px[p * G.rows_b * row_words] >> (c % 32)) & 1u) << p;
+    }
+    xs[i] = static_cast<uint8_t>(v);
+  }
+
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int mtiles = (P + 15) / 16;
+  const int w_row = G.KH * G.KW * G.Cw;
+  int32_t* st = stage + warp * 16 * kStageLd;
+  const long long out_px0 = (static_cast<long long>(b) * G.OH + oh0) * G.OW;
+
+  // depths past K hold weight 0 in every chunk
+  const int taps = G.KH * G.KW;
+  const int tail = G.Kpad - G.K;
+  for (int i = tid; i < G.chunk * tail; i += kThreads)
+    ws[(i / tail) * G.ws_ld + G.K + i % tail] = 0;
+
+  for (int n0 = 0; n0 < G.C_out; n0 += G.chunk) {
+    __syncthreads();  // the band is decoded; the last chunk's weights done
+    // 3. this chunk's weights -> ws[n][tap * C_in + c] = +-1, 0 past C_out
+    for (int i = tid; i < G.chunk * taps; i += kThreads) {
+      const int nl = i / taps;
+      const int tap = i % taps;
+      const int n = n0 + nl;
+      int8_t* dst = ws + nl * G.ws_ld + tap * G.C_in;
+      if (n < G.C_out) {
+        const uint32_t* wp =
+            w + static_cast<long long>(n) * w_row + tap * G.Cw;
+        for (int c = 0; c < G.C_in; ++c)
+          dst[c] = ((wp[c / 32] >> (c % 32)) & 1u) ? 1 : -1;
+      } else {
+        for (int c = 0; c < G.C_in; ++c) dst[c] = 0;
+      }
+    }
+    __syncthreads();
+    const int cn = min(G.chunk, G.C_out - n0);
+    const int ntiles = (cn + 7) / 8;
+
+    // 4. 16-pixel tiles x 64 channels on the tensor cores
+    for (int mt = warp; mt < mtiles; mt += kWarps) {
+      int base[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = mt * 16 + g + 8 * h;
+        base[h] = p < P ? ((p / G.OW) * G.stride * G.Wb +
+                           (p % G.OW) * G.stride) * G.C_in
+                        : 0;
+      }
+      int32_t acc[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0;
+      for (int k0 = 0; k0 < G.Kpad; k0 += 32) {
+        const int* o_lo = off + k0 + 4 * t;
+        const int* o_hi = o_lo + 16;
+        const uint32_t a0 = gather4(xs, base[0], o_lo);
+        const uint32_t a1 = gather4(xs, base[1], o_lo);
+        const uint32_t a2 = gather4(xs, base[0], o_hi);
+        const uint32_t a3 = gather4(xs, base[1], o_hi);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (j < ntiles) {
+            const int8_t* wr = ws + (j * 8 + g) * G.ws_ld + k0 + 4 * t;
+            mma_u8s8(acc[j], a0, a1, a2, a3,
+                     *reinterpret_cast<const uint32_t*>(wr),
+                     *reinterpret_cast<const uint32_t*>(wr + 16));
+          }
+        }
+      }
+      // stage the 16 x chunk tile, then write rows of channels
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        *reinterpret_cast<int2*>(st + g * kStageLd + j * 8 + 2 * t) =
+            make_int2(acc[j][0], acc[j][1]);
+        *reinterpret_cast<int2*>(st + (g + 8) * kStageLd + j * 8 + 2 * t) =
+            make_int2(acc[j][2], acc[j][3]);
+      }
+      __syncwarp();
+      const int p0 = mt * 16;
+      if (G.C_out % 4 == 0) {
+        for (int i = lane; i < 16 * (kChunkN / 4); i += kWarp) {
+          const int r = i / (kChunkN / 4);
+          const int q = i % (kChunkN / 4);
+          if (p0 + r < P && q * 4 < cn)
+            *reinterpret_cast<int4*>(out + (out_px0 + p0 + r) * G.C_out +
+                                     n0 + q * 4) =
+                *reinterpret_cast<const int4*>(st + r * kStageLd + q * 4);
+        }
+      } else {
+        for (int i = lane; i < 16 * kChunkN; i += kWarp) {
+          const int r = i / kChunkN;
+          const int ch = i % kChunkN;
+          if (p0 + r < P && ch < cn)
+            out[(out_px0 + p0 + r) * G.C_out + n0 + ch] =
+                st[r * kStageLd + ch];
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int bitplane_conv(const void* planes, const void* w, void* out,
+                             int B, int H, int W, int Cw, int C_in, int C_out,
+                             int KH, int KW, int stride, int pad_top,
+                             int pad_left, int OH, int OW, int nbits,
+                             void* stream) {
+  if (B <= 0 || OH <= 0 || OW <= 0 || C_out <= 0)
+    return static_cast<int>(cudaGetLastError());
+  if (nbits < 1 || nbits > 8 || C_in < 1 || C_in > 32 * Cw)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, limit = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(
+        &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // the largest chunk, then the largest band, that fits the limit
+  Geometry g{};
+  bool fits = false;
+  const int r_full = (kMinBandPixels + OW - 1) / OW;
+  for (int R = r_full < OH ? r_full : OH; R >= 1 && !fits;
+       R = R > 1 ? R / 2 : 0)
+    for (int chunk = kChunkN; chunk >= 8 && !fits; chunk /= 2) {
+      g = make_geometry(B, H, W, Cw, C_in, C_out, KH, KW, stride, pad_top,
+                        pad_left, OH, OW, nbits, R, chunk);
+      fits = g.smem() <= static_cast<size_t>(limit);
+    }
+  if (!fits) return kTooLarge;
+  const size_t smem = g.smem();
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(bitplane_conv_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid((OH + g.R - 1) / g.R, B);
+  bitplane_conv_kernel<<<grid, kThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(planes), static_cast<const uint32_t*>(w),
+      static_cast<int32_t*>(out), g);
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,7 +32,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("binary_attention", "bitpack", "bitplane_conv", "bn_sign_pack",
-           "conv_bn_sign", "dense_stack", "xnor_gemm")
+           "conv_bn_sign", "dense_stack", "mma_probe", "xnor_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -27,6 +27,9 @@ from repro_torch.kernels import _build
 # csrc/conv_bn_sign.cu: K3 (fused epilogue) and K7 (int32 epilogue)
 _CONV_ENTRIES = {"conv_bn_sign": "pppppp" + "i" * 13 + "p",
                  "binary_conv": "pppp" + "i" * 13 + "p"}
+# csrc/bitplane_conv.cu's kTooLarge: no band and channel chunk of K1 fit
+# one block's shared memory
+BITPLANE_TOO_LARGE = -1
 
 
 def conv_geometry(input_hw: tuple[int, int], kh: int, kw: int, stride: int,
@@ -130,25 +133,39 @@ def bitplane_conv2d_packed(x_planes: torch.Tensor, w_packed: torch.Tensor,
     (``binarize.pack_bitplanes_uint8``), ``w_packed``: (C_out, KH*KW*Cw),
     ``rowsum``: (C_out,) int32.  Returns (B, OH, OW, C_out) int32, the
     exact integer conv of the raw input against sign(W) with zero padding.
-    Adds one to ``bitplane_conv2d_packed.launches`` per kernel launch.
+    The kernel decodes the planes to the raw values and convolves them on
+    the tensor cores, so it needs no rowsum; the wrapper still checks it,
+    the plan's operand.  Raises ``ValueError`` for an input whose band of
+    rows and 8 channels' weights exceed one block's shared memory.  Adds
+    one to ``bitplane_conv2d_packed.launches`` per kernel launch.
     """
     dev = _build.cuda_device(x_planes, "x_planes")
     nb, bsz, h, w, cw = x_planes.shape
-    if nb != nbits:
-        raise ValueError(f"x_planes holds {nb} planes, plan says {nbits}")
+    if nb != nbits or not 1 <= nbits <= 8:
+        raise ValueError(f"x_planes holds {nb} planes, plan says {nbits} "
+                         f"(the kernel takes 1 to 8)")
+    c_in, rem = divmod(k_true, kh * kw)
+    if rem or not 32 * (cw - 1) < c_in <= 32 * cw:
+        raise ValueError(f"k_true {k_true} is not KH*KW*C_in for a C_in "
+                         f"packed into {cw} words")
     _check_geometry(h, w, kh, kw, stride, pads, out_hw)
+    _build.require(rowsum, "rowsum", torch.int32, (c_out,), dev)
     oh, ow = out_hw
     out = torch.empty((bsz, oh, ow, c_out), dtype=torch.int32, device=dev)
-    lib = _build.load("bitplane_conv", {"bitplane_conv": "pppp" + "i" * 14
+    lib = _build.load("bitplane_conv", {"bitplane_conv": "ppp" + "i" * 14
                                         + "p"})
     err = lib.bitplane_conv(
         _build.require(x_planes, "x_planes", torch.int32,
                        x_planes.shape, dev),
         _build.require(w_packed, "w_packed", torch.int32,
                        (c_out, kh * kw * cw), dev),
-        _build.require(rowsum, "rowsum", torch.int32, (c_out,), dev),
-        out.data_ptr(), bsz, h, w, cw, c_out, kh, kw, stride, pads[0][0],
-        pads[1][0], oh, ow, k_true, nbits, _build.stream_of(x_planes))
+        out.data_ptr(), bsz, h, w, cw, c_in, c_out, kh, kw, stride,
+        pads[0][0], pads[1][0], oh, ow, nbits, _build.stream_of(x_planes))
+    if err == BITPLANE_TOO_LARGE:
+        raise ValueError(
+            f"bitplane_conv: one output row's band ({kh} input rows of "
+            f"W={w} at C_in={c_in}, {nbits} planes) and 8 channels' weights "
+            f"of depth {k_true} exceed a block's shared memory")
     _build.check(err, "bitplane_conv")
     bitplane_conv2d_packed.launches += 1
     return out

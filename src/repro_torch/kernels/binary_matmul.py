@@ -6,10 +6,12 @@ and the single-launch hidden stack (K6).
 over packed int32 words, with two epilogues chosen at compile time in
 ``csrc/xnor_gemm.cu``: the int32 result (:func:`binary_matmul_packed`,
 the output layer) or the fused BN-sign threshold + re-bitpack along N
-(:func:`binary_matmul_bn_sign_packed`, the hidden layers).  One kernel
-serves every M, from a single request to a full batch.  The contraction
-contract (the reference's ``_mismatch_counts``) is
-``binarize.packed_mismatches``.
+(:func:`binary_matmul_bn_sign_packed`, the hidden layers).  Each call is
+one launch of one of two kernels, chosen by shape (:func:`gemm_route`):
+up to ``SMALL_M_MAX`` rows of A, XOR + POPC with every weight word read
+once; above it, the words fed as they are to the tensor cores' 1-bit
+MMA.  The contraction contract (the reference's ``_mismatch_counts``)
+is ``binarize.packed_mismatches``.
 
 :func:`binary_dense_stack_packed` (K6, ``csrc/dense_stack.cu``) runs a
 whole chain of hidden layers, each GEMM + BN-sign + re-bitpack, in one
@@ -23,13 +25,25 @@ Each wrapper launches its kernel and takes CUDA tensors only;
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.core import binarize as B
 from repro_torch.kernels import _build
 
-_ENTRIES = {"xnor_gemm": "pppiiiip", "xnor_gemm_bn_sign": "pppppiiiip"}
+_ENTRIES = {"xnor_gemm": "pppiiiiiip", "xnor_gemm_bn_sign": "pppppiiiiiip"}
+
+# K4's routes (csrc/xnor_gemm.cu), chosen by shape.  Up to SMALL_M_MAX
+# rows of A the weight bytes bind and the XOR + POPC kernel reads each
+# weight word once (ROUTE_SMALL); above it the 1-bit tensor-core kernel
+# takes 128 x 128 output tiles (ROUTE_MMA_128) when that grid gives every
+# SM a block, else 64 x 64 tiles (ROUTE_MMA_64).  SMALL_M_MAX is the
+# crossover of the two kernels at the LM's widths, measured on the H100
+# (PERF.md; chip_smoke.py times K4 on both sides of it), and the most rows
+# the small kernel takes (csrc/xnor_gemm.cu: kSmallMaxRows).
+SMALL_M_MAX = 8
+ROUTE_SMALL, ROUTE_MMA_64, ROUTE_MMA_128 = 0, 1, 2
 
 # The H100 residency rule of the single-launch stack (K6).  Its M tiles
 # run on different SMs and each one reads the whole stack, so the stack
@@ -47,13 +61,38 @@ STACK_MAX_TILE_ROWS = 8       # csrc/dense_stack.cu: kMaxTileRows
 STACK_MAX_STAGES = 16         # csrc/dense_stack.cu: kMaxStages
 
 
+def gemm_route(m: int, n: int, sms: int) -> int:
+    """K4's kernel and tile for an (M, N) output on a card of ``sms``
+    SMs: ``ROUTE_SMALL`` up to ``SMALL_M_MAX`` rows, else the tensor-core
+    kernel with the largest tile whose grid has a block for every SM."""
+    if m <= SMALL_M_MAX:
+        return ROUTE_SMALL
+    if -(-m // 128) * -(-n // 128) >= sms:
+        return ROUTE_MMA_128
+    return ROUTE_MMA_64
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def rows_aligned16(*ptr_kw) -> bool:
+    """Whether every row of the (pointer, Kw) word matrices starts on a
+    16-byte boundary: the condition of K4's 16-byte ``cp.async``."""
+    return all(p % 16 == 0 and kw % 4 == 0 for p, kw in ptr_kw)
+
+
 def _operands(a_packed: torch.Tensor, b_packed: torch.Tensor):
+    """Check both operands; returns the sizes, the device, the pointers
+    and the launch's route and alignment flag."""
     m, kw = a_packed.shape
     n = b_packed.shape[0]
     dev = _build.cuda_device(a_packed, "a_packed")
     pa = _build.require(a_packed, "a_packed", torch.int32, (m, kw), dev)
     pb = _build.require(b_packed, "b_packed", torch.int32, (n, kw), dev)
-    return m, n, kw, dev, pa, pb
+    return (m, n, kw, dev, pa, pb, gemm_route(m, n, _sm_count(dev)),
+            int(rows_aligned16((pa, kw), (pb, kw))))
 
 
 def binary_matmul_packed(a_packed: torch.Tensor, b_packed: torch.Tensor, *,
@@ -63,11 +102,11 @@ def binary_matmul_packed(a_packed: torch.Tensor, b_packed: torch.Tensor, *,
     ``k_true`` is the logical K before packing.  Adds one to
     ``binary_matmul_packed.launches`` per kernel launch.
     """
-    m, n, kw, dev, pa, pb = _operands(a_packed, b_packed)
+    m, n, kw, dev, pa, pb, route, vec16 = _operands(a_packed, b_packed)
     out = torch.empty((m, n), dtype=torch.int32, device=dev)
     lib = _build.load("xnor_gemm", _ENTRIES)
-    err = lib.xnor_gemm(pa, pb, out.data_ptr(), m, n, kw, k_true,
-                        _build.stream_of(a_packed))
+    err = lib.xnor_gemm(pa, pb, out.data_ptr(), m, n, kw, k_true, route,
+                        vec16, _build.stream_of(a_packed))
     _build.check(err, "xnor_gemm")
     binary_matmul_packed.launches += 1
     return out
@@ -86,13 +125,14 @@ def binary_matmul_bn_sign_packed(a_packed: torch.Tensor,
     bit-identical to ``pack_bits(apply_bn_sign_folded(gemm_out))``.  Adds
     one to ``binary_matmul_bn_sign_packed.launches`` per kernel launch.
     """
-    m, n, kw, dev, pa, pb = _operands(a_packed, b_packed)
+    m, n, kw, dev, pa, pb, route, vec16 = _operands(a_packed, b_packed)
     out = torch.empty((m, B.packed_width(n)), dtype=torch.int32, device=dev)
     lib = _build.load("xnor_gemm", _ENTRIES)
     err = lib.xnor_gemm_bn_sign(
         pa, pb, _build.require(tau, "tau", torch.float32, (n,), dev),
         _build.require(flip, "flip", torch.float32, (n,), dev),
-        out.data_ptr(), m, n, kw, k_true, _build.stream_of(a_packed))
+        out.data_ptr(), m, n, kw, k_true, route, vec16,
+        _build.stream_of(a_packed))
     _build.check(err, "xnor_gemm_bn_sign")
     binary_matmul_bn_sign_packed.launches += 1
     return out

@@ -65,6 +65,80 @@ def test_xnor_gemm_kernels(dev, m, n, k):
         ref.binary_matmul_bn_sign_packed_ref(a, w, tau, flip, k))
 
 
+def _misaligned(t):
+    """A contiguous copy of ``t`` starting 4 bytes past 16-byte alignment."""
+    flat = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    start = next(i for i in range(4) if (flat.data_ptr() + 4 * i) % 16 == 4)
+    out = flat[start:start + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# The edges of K4's tiles: the small-M route's limit (8) and past it, rows
+# that end inside an m16 fragment, one and two 64- and 128-row tiles,
+# ragged N and K, the LM's widths, and rows that do not start on 16 bytes.
+@pytest.mark.parametrize("m,n,k,shift", [
+    (8, 136, 31, False), (9, 136, 3584, False), (15, 136, 31, False), (16, 40, 3584, False), (17, 10, 33, False),
+    (128, 136, 1, False), (129, 40, 14336, False), (1, 14336, 3584, False),
+    (4608, 14336, 3584, False), (129, 136, 3584, True),
+    (15, 40, 3584, True), (4608, 136, 33, True), (2048, 4096, 100, True)])
+def test_xnor_gemm_tile_edges(dev, m, n, k, shift):
+    gen = torch.Generator().manual_seed(m * n + k)
+    a = B.pack_bits(_pm1(gen, m, k)).to(dev)
+    w = B.pack_bits(_pm1(gen, n, k)).to(dev)
+    if shift:
+        a, w = _misaligned(a), _misaligned(w)
+        assert a.data_ptr() % 16 == 4 and a.is_contiguous()
+    tau, flip = _bn(gen, n, k, dev)
+    assert torch.equal(bmm.binary_matmul_packed(a, w, k_true=k),
+                       ref.binary_matmul_packed_ref(a, w, k))
+    assert torch.equal(
+        bmm.binary_matmul_bn_sign_packed(a, w, tau, flip, k_true=k),
+        ref.binary_matmul_bn_sign_packed_ref(a, w, tau, flip, k))
+
+
+# K1's edges, and inputs whose full band and 64 channels' weights exceed a
+# block's shared memory: C_in 256 (chunks of 32 channels), C_in 512 (8
+# channels, a 2-row band) and a 224-wide row at C_in 128 (16 channels, a
+# 1-row band).
+@pytest.mark.parametrize("hw,c_in,c_out,stride,padding,nbits", [
+    ((9, 9), 33, 40, 2, "SAME", 1), ((11, 7), 33, 10, 2, "VALID", 8),
+    ((9, 9), 3, 40, 2, "SAME", 1), ((13, 5), 3, 136, 2, "VALID", 8),
+    ((32, 32), 3, 128, 1, "SAME", 8), ((7, 7), 33, 72, 1, "SAME", 4),
+    ((32, 32), 256, 64, 1, "SAME", 8), ((32, 32), 512, 40, 1, "SAME", 8),
+    ((4, 224), 128, 72, 1, "SAME", 8)])
+def test_bitplane_conv_kernel_edges(dev, hw, c_in, c_out, stride, padding,
+                                    nbits):
+    gen = torch.Generator().manual_seed(c_in * c_out + nbits)
+    bplan = bconv.make_bitplane_conv_plan(
+        _pm1(gen, c_out, 3, 3, c_in), input_hw=hw, stride=stride,
+        padding=padding, nbits=nbits)
+    planes = B.pack_bitplanes_uint8(torch.randint(
+        0, 2 ** nbits, (3, *hw, c_in), generator=gen,
+        dtype=torch.uint8).to(dev), nbits)
+    bargs = (planes, bplan["w_packed"].to(dev), bplan["rowsum"].to(dev))
+    geom = dict(kh=3, kw=3, stride=stride, pads=bplan["pads"], c_out=c_out,
+                k_true=bplan["k_true"])
+    assert torch.equal(
+        bconv.bitplane_conv2d_packed(*bargs, out_hw=bplan["out_hw"],
+                                     nbits=nbits, **geom),
+        ref.bitplane_conv2d_planes_ref(*bargs, nbits=nbits, **geom))
+
+
+def test_bitplane_conv_refuses_what_shared_memory_cannot_hold(dev):
+    hw, c_in = (3, 2048), 1024
+    bplan = bconv.make_bitplane_conv_plan(
+        torch.ones(8, 3, 3, c_in), input_hw=hw, padding="VALID", nbits=8)
+    planes = B.pack_bitplanes_uint8(
+        torch.zeros((1, *hw, c_in), dtype=torch.uint8, device=dev), 8)
+    with pytest.raises(ValueError, match="shared memory"):
+        bconv.bitplane_conv2d_packed(
+            planes, bplan["w_packed"].to(dev), bplan["rowsum"].to(dev),
+            kh=3, kw=3, stride=1, pads=bplan["pads"],
+            out_hw=bplan["out_hw"], c_out=8, k_true=bplan["k_true"],
+            nbits=8)
+
+
 @pytest.mark.parametrize("hw,c_in,c_out,stride,padding", [
     ((32, 32), 128, 128, 1, "SAME"), ((9, 9), 33, 40, 2, "VALID"),
     ((7, 7), 20, 10, 2, "SAME")])
