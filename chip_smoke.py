@@ -8,8 +8,9 @@ Phases, each printing its lines:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every CUDA kernel of ``src/repro_torch/csrc``, one ``nvcc``
    per source in parallel, with the ptxas register/shared-memory report
-   (a spill in K1 or K4 fails the run), then the tensor cores' 1-bit and
-   int8 ``mma.sync`` peaks (``csrc/mma_probe.cu``), which the bounds use;
+   (a spill in K1, K3/K7 or K4 fails the run), then the tensor cores'
+   1-bit and int8 ``mma.sync`` peaks (``csrc/mma_probe.cu``), which the
+   bounds use;
 3. kernels: each kernel against its plain PyTorch version on the card,
    bit-exact, at the full-width shapes of every path (batch 8), at the
    layer entry points' shapes and on ragged cases;
@@ -73,7 +74,8 @@ INT8_OPS_PER_S = 1979e12
 # measures its mma.sync peak (csrc/mma_probe.cu) and bounds with that.
 BIT_MACS_PER_B1_MMA = 16 * 8 * 256
 MACS_PER_S8_MMA = 16 * 8 * 32
-SPILL_FREE = ("bitplane_conv", "xnor_gemm")   # ptxas must report 0 spills
+# ptxas must report 0 spills
+SPILL_FREE = ("bitplane_conv", "conv_bn_sign", "xnor_gemm")
 
 LM_SERVE = ((1, 16), (8, 16))            # the reference serves max_len 16
 LM_PREFILL = (1, 4608)                   # longer than the 4096 window
@@ -124,17 +126,18 @@ class Call:
     the library computes the kernel's whole function; it is None where
     the library computes only the contraction (no fused epilogue).
     ``also`` is a second yardstick, timed and printed only (the +-1
-    float32 ``torch.matmul`` beside ``torch._int_mm``).  ``tol`` is None
-    for a kernel held to its plain version exactly, else the
-    ``torch.allclose`` tolerance."""
+    float32 ``torch.matmul`` beside ``torch._int_mm``, or ``F.conv2d``
+    beside the im2col ``torch._int_mm``), ``also_name`` what it is.
+    ``tol`` is None for a kernel held to its plain version exactly, else
+    the ``torch.allclose`` tolerance."""
 
     def __init__(self, name, kernel, plain, nbytes, word_ops, library=None,
                  library_as=None, flops=0, tol=None, macs=0, also=None,
-                 bit_macs=None):
+                 bit_macs=None, also_name="the ±1 float32 torch.matmul"):
         self.name, self.kernel, self.plain = name, kernel, plain
         self.nbytes, self.word_ops, self.library = nbytes, word_ops, library
         self.library_as, self.flops, self.tol = library_as, flops, tol
-        self.macs, self.also = macs, also
+        self.macs, self.also, self.also_name = macs, also, also_name
         self.bit_macs = macs if bit_macs is None else bit_macs
 
 
@@ -300,6 +303,7 @@ def bcnn_calls(packed, x, dense_stack):
                     pads=pc["pads"], c_out=pc["c_out"], k_true=pc["k_true"])
         oh, ow = pc["out_hw"]
         args = (hp, pc["w_packed"], pc["correction"], fc["tau"], fc["flip"])
+        library, _, also = conv_library(B.unpack_bits(hp, pc["c_in"]), pc)
         calls.append(Call(
             "conv_bn_sign",
             functools.partial(bconv.binary_conv2d_bn_sign_packed, *args,
@@ -308,7 +312,8 @@ def bcnn_calls(packed, x, dense_stack):
                               **geom),
             _nbytes(*args) + bsz * oh * ow * B.packed_width(pc["c_out"]) * 4,
             bsz * oh * ow * pc["c_out"] * pc["kh"] * pc["kw"] * pc["cw"],
-            macs=bsz * oh * ow * pc["c_out"] * pc["k_true"]))
+            library, macs=bsz * oh * ow * pc["c_out"] * pc["k_true"],
+            also=also, also_name="F.conv2d on the ±1 tensors"))
         hp = calls[-1].plain()
         if spec.stages[i].pool:
             hp = L.maxpool2d_packed(hp, packed["pool_masks"][i])
@@ -319,6 +324,37 @@ def bcnn_calls(packed, x, dense_stack):
                                   packed["folded_dense"], dense_stack)
     out = packed["denses"][n - 1]
     return calls + stack + [gemm_call(h, out["w_packed"], out["k_true"])]
+
+
+def conv_library(x_pm1, plan):
+    """The yardsticks of a packed conv on its ±1 input ``x_pm1`` (B, H, W,
+    C_in): ``torch._int_mm`` on the ±1 int8 im2col (B*OH*OW, KH*KW*C_in)
+    with zero padding, tap-major as the packed weights, against the ±1
+    int8 weights, and ``F.conv2d`` on the ±1 float32 tensors (TF32 off).
+    Both compute the true zero-pad conv, the kernel's int32 result.
+    Returns the ``_int_mm`` call (None where its shape rule fails), the
+    map of its (M, C_out) output onto (B, OH, OW, C_out), and the
+    ``F.conv2d`` call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import binarize as B
+    kh, kw, s, c_out = plan["kh"], plan["kw"], plan["stride"], plan["c_out"]
+    (pt, pb), (pl, pr) = plan["pads"]
+    oh, ow = plan["out_hw"]
+    xp = F.pad(x_pm1, (0, 0, pl, pr, pt, pb))
+    cols = torch.cat([xp[:, di:di + (oh - 1) * s + 1:s,
+                         dj:dj + (ow - 1) * s + 1:s]
+                      for di in range(kh) for dj in range(kw)], dim=-1)
+    m, k = cols.shape[0] * oh * ow, cols.shape[-1]
+    a = cols.reshape(m, k).to(torch.int8)
+    w = B.unpack_bits(plan["w_packed"].reshape(c_out, kh * kw, plan["cw"]),
+                      plan["c_in"], torch.int8).reshape(c_out, k)
+    library = (functools.partial(torch._int_mm, a, w.T)
+               if int_mm_allowed(m, c_out, k) else None)
+    also = functools.partial(
+        F.conv2d, F.pad(x_pm1.permute(0, 3, 1, 2), (pl, pr, pt, pb)),
+        unpacked_conv_weights(plan), stride=s)
+    return library, (lambda y: y.reshape(-1, oh, ow, c_out)), also
 
 
 def unpacked_conv_weights(plan):
@@ -373,10 +409,9 @@ def matmul_calls(a, b):
 
 def conv_calls(x, w):
     """``ops.binary_conv2d`` (the Table-3 layer): bitpack the channels,
-    then K7.  Library: ``F.conv2d`` on the ±1 tensors (float32, TF32 off,
-    zero padding), the same function."""
-    import torch
-    import torch.nn.functional as F
+    then K7.  Library: ``torch._int_mm`` on the zero-padded ±1 int8
+    im2col, and beside it ``F.conv2d`` on the ±1 tensors (float32, TF32
+    off, zero padding); both compute the same function."""
     from repro_torch.core import binarize as B
     from repro_torch.kernels import binary_conv as bconv
     from repro_torch.kernels import ref
@@ -391,8 +426,7 @@ def conv_calls(x, w):
                 k_true=plan["k_true"])
     args = (xp, plan["w_packed"], plan["correction"])
     oh, ow = plan["out_hw"]
-    (pt, pb), (pl, pr) = plan["pads"]
-    xf = B.sign_pm1(x).permute(0, 3, 1, 2)
+    library, library_as, also = conv_library(B.sign_pm1(x), plan)
     calls.append(Call(
         "binary_conv",
         functools.partial(bconv.binary_conv2d_packed, *args,
@@ -400,11 +434,9 @@ def conv_calls(x, w):
         functools.partial(ref.binary_conv2d_packed_ref, *args, **geom),
         _nbytes(*args) + bsz * oh * ow * plan["c_out"] * 4,
         bsz * oh * ow * plan["c_out"] * plan["kh"] * plan["kw"] * plan["cw"],
-        functools.partial(F.conv2d, F.pad(xf, (pl, pr, pt, pb)),
-                          unpacked_conv_weights(plan),
-                          stride=plan["stride"]),
-        lambda y: y.permute(0, 2, 3, 1).round().to(torch.int32),
-        macs=bsz * oh * ow * plan["c_out"] * plan["k_true"]))
+        library, library_as if library else None,
+        macs=bsz * oh * ow * plan["c_out"] * plan["k_true"], also=also,
+        also_name="F.conv2d on the ±1 tensors"))
     return calls
 
 
@@ -855,7 +887,8 @@ def check_calls(what: str, calls) -> None:
 
 def ragged_checks(gen, dev) -> list[str]:
     """Ragged shapes: channel and K tails, N 10 and 40, M 1, stride 2, and
-    the edges of K4's and K1's tiles (GEMM_RAGGED, BITPLANE_RAGGED)."""
+    the edges of K4's, K3/K7's and K1's tiles (GEMM_RAGGED, CONV_RAGGED,
+    BITPLANE_RAGGED)."""
     import torch
     from repro_torch.core import binarize as B
     from repro_torch.kernels import binary_conv as bconv
@@ -928,26 +961,38 @@ def ragged_checks(gen, dev) -> list[str]:
             k_trues=[s["k_true"] for s in stages]),
             ref.binary_dense_stack_packed_ref(stages, x))
         done.append(f"dense_stack 100 -> 40 -> 96 -> 10, M={m}")
-    for (hw, c_in, c_out, stride, padding) in (((9, 9), 33, 40, 2, "VALID"),
-                                                ((7, 7), 20, 40, 1, "SAME"),
-                                                ((9, 9), 64, 10, 2, "SAME")):
+    def conv_case(bsz, hw, c_in, c_out, stride, padding, shift=False):
         plan = bconv.make_conv_plan(pm1(c_out, 3, 3, c_in), input_hw=hw,
                                     stride=stride, padding=padding)
-        x = B.pack_bits(pm1(2, *hw, c_in)).to(dev)
+        x = B.pack_bits(pm1(bsz, *hw, c_in)).to(dev)
+        if shift:           # rows that do not start on 16 bytes
+            x = misaligned(x)
         geom = dict(kh=3, kw=3, stride=stride, pads=plan["pads"],
                     c_out=c_out, k_true=plan["k_true"])
         tau, flip = bn(c_out, plan["k_true"])
         args = (x, plan["w_packed"].to(dev), plan["correction"].to(dev))
-        what = f"{hw} C_in={c_in} C_out={c_out} s{stride} {padding}"
+        tile = bconv.conv_tile(bsz * plan["out_hw"][0] * plan["out_hw"][1],
+                               c_out, torch.cuda.get_device_properties(
+                                   dev).multi_processor_count)
+        what = (f"B={bsz} {hw} C_in={c_in} C_out={c_out} s{stride} "
+                f"{padding}, tile {tile}"
+                + (", input 4 bytes off 16-byte alignment" if shift else ""))
         check_equal(f"conv_bn_sign {what}", bconv.binary_conv2d_bn_sign_packed(
             *args, tau, flip, out_hw=plan["out_hw"], **geom),
             ref.binary_conv2d_bn_sign_packed_ref(*args, tau, flip, **geom))
         check_equal(f"binary_conv {what}", bconv.binary_conv2d_packed(
             *args, out_hw=plan["out_hw"], **geom),
             ref.binary_conv2d_packed_ref(*args, **geom))
-        done.append(f"conv_bn_sign and binary_conv {what}")
+        return f"conv_bn_sign and binary_conv {what}"
+
+    for (hw, c_in, c_out, stride, padding) in (((9, 9), 33, 40, 2, "VALID"),
+                                                ((7, 7), 20, 40, 1, "SAME"),
+                                                ((9, 9), 64, 10, 2, "SAME")):
+        done.append(conv_case(2, hw, c_in, c_out, stride, padding))
         done.append(bitplane_check(gen, dev, hw, 3, c_out, stride, padding,
                                    8))
+    for case in CONV_RAGGED:
+        done.append(conv_case(*case))
     for hw, c_in, c_out, stride, padding, nbits in BITPLANE_RAGGED:
         done.append(bitplane_check(gen, dev, hw, c_in, c_out, stride,
                                    padding, nbits))
@@ -970,6 +1015,24 @@ GEMM_RAGGED = ((1, 10, 1000, False), (3, 10, 33, False),
                (4608, 14336, 3584, False), (129, 136, 3584, True),
                (15, 40, 3584, True), (4608, 136, 33, True),
                (2048, 4096, 100, True))
+# K3/K7 edges of the tensor-core tiling, (B, hw, C_in, C_out, stride,
+# padding, misaligned): the BCNN's five packed-conv stages at batch 2
+# (Cw 4, 8, 16: 4.5, 9 and 18 k256 steps), C_out 10, 40 and 136, inputs of
+# 1 and 2 words (rows not 16-byte aligned: 4-byte copies), stride 2 VALID,
+# 64 x 128 tiles with M ending inside one, M below one m16 fragment, and
+# an input 4 bytes off 16-byte alignment.
+CONV_RAGGED = ((2, (32, 32), 128, 128, 1, "SAME", False),
+               (2, (16, 16), 128, 256, 1, "SAME", False),
+               (2, (16, 16), 256, 256, 1, "SAME", False),
+               (2, (8, 8), 256, 512, 1, "SAME", False),
+               (2, (8, 8), 512, 512, 1, "SAME", False),
+               (2, (9, 9), 3, 136, 1, "SAME", False),
+               (3, (11, 7), 33, 136, 2, "VALID", False),
+               (2, (9, 9), 64, 40, 2, "VALID", False),
+               (2, (5, 5), 128, 10, 1, "SAME", False),
+               (80, (15, 15), 64, 40, 1, "SAME", False),
+               (1, (2, 2), 256, 136, 1, "SAME", False),
+               (3, (9, 9), 128, 40, 1, "SAME", True))
 # K1 edges: (hw, C_in, C_out, stride, padding, nbits); the last three
 # exceed a block's shared memory with the full band and 64 channels'
 # weights, and take smaller channel chunks or bands.
@@ -1043,6 +1106,7 @@ def kernel_table(calls, rates, kernel_reps, plain_reps):
                                      "word_ops": 0, "flops": 0, "macs": 0,
                                      "bit_macs": 0,
                                      "library_ms": 0.0, "also_ms": 0.0,
+                                     "also_name": c.also_name,
                                      "max_abs_err": 0})
         r["max_abs_err"] = max(r["max_abs_err"],
                                check_call(c.name, c, got, want))
@@ -1106,7 +1170,7 @@ def log_table(what, rows) -> None:
         lib = ("null" if r["library_ms"] is None
                else f"{r['library_ms']:.5g}")
         also = ("" if not r["also_ms"] else
-                f"; the ±1 float32 torch.matmul {r['also_ms']:.5g} ms")
+                f"; {r['also_name']} {r['also_ms']:.5g} ms")
         log(f"time {what} {k}: x{r['launches_per_forward']} per run, "
             f"kernel {r['ms']:.5g} ms, plain {r['plain_ms']:.5g} ms, "
             f"bound {r['bound_ms']:.5g} ms ({r['bound_by']}; operations by "
@@ -1293,7 +1357,7 @@ def main() -> int:
         check_calls(f"binary_conv2d B={b}", conv_calls(x, conv_w))
     log("kernels: ops.binary_conv2d on the Table-3 layer at batch 1 and 256 "
         "bit-exact (bitpack; K7 against the plain version and against "
-        "F.conv2d on the ±1 tensors, TF32 off)")
+        "torch._int_mm on the zero-padded ±1 int8 im2col)")
     for what in ragged_checks(gen, dev):
         log(f"kernels: {what} bit-exact")
     attention = attention_cases(gen, dev)

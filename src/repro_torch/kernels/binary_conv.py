@@ -9,7 +9,9 @@
   (K3, ``csrc/conv_bn_sign.cu``) is the packed conv with the C5
   correction and the fused BN-sign repack, and :func:`binary_conv2d_packed`
   (K7, the same source with the epilogue switched off) the packed conv
-  with an int32 output.  All three do their im2col inside the kernel;
+  with an int32 output; both run it as an implicit GEMM on the 1-bit
+  tensor cores, K4's main loop (``csrc/b1_mma.cuh``), in the tiles
+  :func:`conv_tile` picks.  All three do their im2col inside the kernel;
   padded taps read the word 0, i.e. all -1.
 
 Each wrapper launches its kernel and takes CUDA tensors only;
@@ -23,13 +25,17 @@ import torch.nn.functional as F
 
 from repro_torch.core import binarize as B
 from repro_torch.kernels import _build
+from repro_torch.kernels import binary_matmul as _bmm
 
 # csrc/conv_bn_sign.cu: K3 (fused epilogue) and K7 (int32 epilogue)
-_CONV_ENTRIES = {"conv_bn_sign": "pppppp" + "i" * 13 + "p",
-                 "binary_conv": "pppp" + "i" * 13 + "p"}
+_CONV_ENTRIES = {"conv_bn_sign": "pppppp" + "i" * 15 + "p",
+                 "binary_conv": "pppp" + "i" * 15 + "p"}
 # csrc/bitplane_conv.cu's kTooLarge: no band and channel chunk of K1 fit
 # one block's shared memory
 BITPLANE_TOO_LARGE = -1
+# K3/K7's output tiles (csrc/conv_bn_sign.cu), (pixels, channels), chosen
+# by shape (:func:`conv_tile`).
+TILE_64X64, TILE_64X128 = 1, 2
 
 
 def conv_geometry(input_hw: tuple[int, int], kh: int, kw: int, stride: int,
@@ -174,10 +180,23 @@ def bitplane_conv2d_packed(x_planes: torch.Tensor, w_packed: torch.Tensor,
 bitplane_conv2d_packed.launches = 0
 
 
+def conv_tile(m: int, n: int, sms: int) -> int:
+    """K3/K7's tile for an (M, N) = (B*OH*OW, C_out) output on a card of
+    ``sms`` SMs: 64 x 128 where that grid gives every SM a block, else
+    64 x 64.  On the H100 64 x 128 was the faster at every BCNN stage at
+    batch 256 and 64 x 64 at batch 1, where the grid is small (PERF.md,
+    ``chip_conv_tiles.py``)."""
+    if _bmm.fills_card(m, n, (64, 128), sms):
+        return TILE_64X128
+    return TILE_64X64
+
+
 def _conv_operands(x_packed, w_packed, correction, *, kh, kw, stride, pads,
                    out_hw, c_out):
     """Check the operands K3 and K7 share; returns the launch's device,
-    input sizes and operand pointers."""
+    input sizes, operand pointers, and its tile (:func:`conv_tile`) and
+    copy width (16-byte copies where the rows of x and w_packed start on
+    16 bytes)."""
     dev = _build.cuda_device(x_packed, "x_packed")
     bsz, h, w, cw = x_packed.shape
     _check_geometry(h, w, kh, kw, stride, pads, out_hw)
@@ -187,7 +206,9 @@ def _conv_operands(x_packed, w_packed, correction, *, kh, kw, stride, pads,
                            (c_out, kh * kw * cw), dev),
             _build.require(correction, "correction", torch.int32,
                            (*out_hw, c_out), dev))
-    return dev, (bsz, h, w, cw), ptrs
+    tile = conv_tile(bsz * out_hw[0] * out_hw[1], c_out, _bmm.sm_count(dev))
+    vec16 = int(_bmm.rows_aligned16((ptrs[0], cw), (ptrs[1], kh * kw * cw)))
+    return dev, (bsz, h, w, cw), ptrs, (tile, vec16)
 
 
 def binary_conv2d_bn_sign_packed(x_packed: torch.Tensor,
@@ -204,7 +225,7 @@ def binary_conv2d_bn_sign_packed(x_packed: torch.Tensor,
     ``pack_bits(apply_bn_sign_folded(conv_out))``.  Adds one to
     ``binary_conv2d_bn_sign_packed.launches`` per kernel launch.
     """
-    dev, (bsz, h, w, cw), ptrs = _conv_operands(
+    dev, (bsz, h, w, cw), ptrs, tile = _conv_operands(
         x_packed, w_packed, correction, kh=kh, kw=kw, stride=stride,
         pads=pads, out_hw=out_hw, c_out=c_out)
     oh, ow = out_hw
@@ -215,7 +236,7 @@ def binary_conv2d_bn_sign_packed(x_packed: torch.Tensor,
         *ptrs, _build.require(tau, "tau", torch.float32, (c_out,), dev),
         _build.require(flip, "flip", torch.float32, (c_out,), dev),
         out.data_ptr(), bsz, h, w, cw, c_out, kh, kw, stride, pads[0][0],
-        pads[1][0], oh, ow, k_true, _build.stream_of(x_packed))
+        pads[1][0], oh, ow, k_true, *tile, _build.stream_of(x_packed))
     _build.check(err, "conv_bn_sign")
     binary_conv2d_bn_sign_packed.launches += 1
     return out
@@ -235,7 +256,7 @@ def binary_conv2d_packed(x_packed: torch.Tensor, w_packed: torch.Tensor,
     integer conv of the ±1 tensors with true zero padding.  Adds one to
     ``binary_conv2d_packed.launches`` per kernel launch.
     """
-    dev, (bsz, h, w, cw), ptrs = _conv_operands(
+    dev, (bsz, h, w, cw), ptrs, tile = _conv_operands(
         x_packed, w_packed, correction, kh=kh, kw=kw, stride=stride,
         pads=pads, out_hw=out_hw, c_out=c_out)
     oh, ow = out_hw
@@ -243,7 +264,7 @@ def binary_conv2d_packed(x_packed: torch.Tensor, w_packed: torch.Tensor,
     lib = _build.load("conv_bn_sign", _CONV_ENTRIES)
     err = lib.binary_conv(*ptrs, out.data_ptr(), bsz, h, w, cw, c_out, kh,
                           kw, stride, pads[0][0], pads[1][0], oh, ow, k_true,
-                          _build.stream_of(x_packed))
+                          *tile, _build.stream_of(x_packed))
     _build.check(err, "binary_conv")
     binary_conv2d_packed.launches += 1
     return out

@@ -61,19 +61,27 @@ STACK_MAX_TILE_ROWS = 8       # csrc/dense_stack.cu: kMaxTileRows
 STACK_MAX_STAGES = 16         # csrc/dense_stack.cu: kMaxStages
 
 
+def fills_card(m: int, n: int, tile: tuple[int, int], sms: int) -> bool:
+    """Whether (tile_m, tile_n) output tiles over an (M, N) output give
+    each of ``sms`` SMs a block: the tile rule of the tensor-core kernels
+    (K4's :func:`gemm_route`, K3/K7's ``binary_conv.conv_tile``)."""
+    return -(-m // tile[0]) * -(-n // tile[1]) >= sms
+
+
 def gemm_route(m: int, n: int, sms: int) -> int:
     """K4's kernel and tile for an (M, N) output on a card of ``sms``
     SMs: ``ROUTE_SMALL`` up to ``SMALL_M_MAX`` rows, else the tensor-core
     kernel with the largest tile whose grid has a block for every SM."""
     if m <= SMALL_M_MAX:
         return ROUTE_SMALL
-    if -(-m // 128) * -(-n // 128) >= sms:
+    if fills_card(m, n, (128, 128), sms):
         return ROUTE_MMA_128
     return ROUTE_MMA_64
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(dev) -> int:
+def sm_count(dev) -> int:
+    """The SM count of CUDA device ``dev``, which the tile rules take."""
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
@@ -91,7 +99,7 @@ def _operands(a_packed: torch.Tensor, b_packed: torch.Tensor):
     dev = _build.cuda_device(a_packed, "a_packed")
     pa = _build.require(a_packed, "a_packed", torch.int32, (m, kw), dev)
     pb = _build.require(b_packed, "b_packed", torch.int32, (n, kw), dev)
-    return (m, n, kw, dev, pa, pb, gemm_route(m, n, _sm_count(dev)),
+    return (m, n, kw, dev, pa, pb, gemm_route(m, n, sm_count(dev)),
             int(rows_aligned16((pa, kw), (pb, kw))))
 
 

@@ -139,9 +139,20 @@ def test_bitplane_conv_refuses_what_shared_memory_cannot_hold(dev):
             nbits=8)
 
 
+# K3/K7's tensor-core tiles: the BCNN's five packed-conv stages (Cw 4, 8
+# and 16: 4.5, 9 and 18 k256 steps), then ragged channels (C_out 10, 40,
+# 136) and inputs of 1 and 2 words (rows not 16-byte aligned: 4-byte
+# copies), stride 2 VALID and pixel counts that end inside a tile.
+CONV_STAGES_AND_RAGGED = [
+    ((16, 16), 128, 256, 1, "SAME"), ((16, 16), 256, 256, 1, "SAME"),
+    ((8, 8), 256, 512, 1, "SAME"), ((8, 8), 512, 512, 1, "SAME"),
+    ((9, 9), 3, 136, 1, "SAME"), ((11, 7), 33, 136, 2, "VALID"),
+    ((9, 9), 64, 40, 2, "VALID"), ((5, 5), 128, 10, 1, "SAME")]
+
+
 @pytest.mark.parametrize("hw,c_in,c_out,stride,padding", [
     ((32, 32), 128, 128, 1, "SAME"), ((9, 9), 33, 40, 2, "VALID"),
-    ((7, 7), 20, 10, 2, "SAME")])
+    ((7, 7), 20, 10, 2, "SAME")] + CONV_STAGES_AND_RAGGED)
 def test_conv_kernels(dev, hw, c_in, c_out, stride, padding):
     gen = torch.Generator().manual_seed(c_in + c_out + stride)
     plan = bconv.make_conv_plan(_pm1(gen, c_out, 3, 3, c_in), input_hw=hw,
@@ -202,7 +213,8 @@ def test_dense_stack_kernel(dev, m):
 
 @pytest.mark.parametrize("hw,c_in,c_out,stride,padding", [
     ((16, 16), 128, 256, 1, "SAME"), ((9, 9), 33, 40, 2, "VALID"),
-    ((7, 7), 20, 40, 1, "SAME"), ((9, 9), 64, 10, 2, "SAME")])
+    ((7, 7), 20, 40, 1, "SAME"), ((9, 9), 64, 10, 2, "SAME"),
+    ((32, 32), 128, 128, 1, "SAME")] + CONV_STAGES_AND_RAGGED[1:])
 def test_binary_conv_kernel(dev, hw, c_in, c_out, stride, padding):
     gen = torch.Generator().manual_seed(c_in * c_out + stride)
     plan = bconv.make_conv_plan(_pm1(gen, c_out, 3, 3, c_in), input_hw=hw,
@@ -214,6 +226,30 @@ def test_binary_conv_kernel(dev, hw, c_in, c_out, stride, padding):
     assert torch.equal(
         bconv.binary_conv2d_packed(*args, out_hw=plan["out_hw"], **geom),
         ref.binary_conv2d_packed_ref(*args, **geom))
+
+
+@pytest.mark.parametrize("bsz,hw,c_in,c_out,shift", [
+    (80, (15, 15), 64, 40, False),     # 64 x 128 tiles, M ends inside one
+    (256, (8, 8), 512, 512, False),    # the BCNN's last stage at batch 256
+    (3, (9, 9), 128, 40, True),        # x 4 bytes off 16: 4-byte copies
+    (1, (2, 2), 256, 136, False)])     # M = 4, one tile mostly empty
+def test_conv_kernel_tiles(dev, bsz, hw, c_in, c_out, shift):
+    gen = torch.Generator().manual_seed(bsz + c_in + c_out)
+    plan = bconv.make_conv_plan(_pm1(gen, c_out, 3, 3, c_in), input_hw=hw)
+    geom = dict(kh=3, kw=3, stride=1, pads=plan["pads"], c_out=c_out,
+                k_true=plan["k_true"])
+    x = B.pack_bits(_pm1(gen, bsz, *hw, c_in)).to(dev)
+    if shift:
+        x = _misaligned(x)
+    tau, flip = _bn(gen, c_out, plan["k_true"], dev)
+    args = (x, plan["w_packed"].to(dev), plan["correction"].to(dev))
+    assert torch.equal(
+        bconv.binary_conv2d_packed(*args, out_hw=plan["out_hw"], **geom),
+        ref.binary_conv2d_packed_ref(*args, **geom))
+    assert torch.equal(
+        bconv.binary_conv2d_bn_sign_packed(*args, tau, flip,
+                                           out_hw=plan["out_hw"], **geom),
+        ref.binary_conv2d_bn_sign_packed_ref(*args, tau, flip, **geom))
 
 
 def test_wrappers_reject_what_they_do_not_take(dev):

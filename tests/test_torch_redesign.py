@@ -25,7 +25,7 @@ from repro_torch.core import binarize as TB
 from repro_torch.kernels import binary_conv as TBC
 from repro_torch.kernels import binary_matmul as TBM
 
-BK = 32                 # csrc/xnor_gemm.cu: kBK, words per stage
+BK = 32                 # csrc/b1_mma.cuh: kBK, words per stage
 
 
 def _rng(*key):
