@@ -8,9 +8,9 @@ Phases, each printing its lines:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every CUDA kernel of ``src/repro_torch/csrc``, one ``nvcc``
    per source in parallel, with the ptxas register/shared-memory report
-   (a spill in K1, K3/K7 or K4 fails the run), then the tensor cores'
-   1-bit and int8 ``mma.sync`` peaks (``csrc/mma_probe.cu``), which the
-   bounds use;
+   (a spill in K1, K3/K7, K4 or K8 fails the run), then the tensor cores'
+   1-bit, int8 and TF32 ``mma.sync`` peaks (``csrc/mma_probe.cu``), which
+   the bounds use;
 3. kernels: each kernel against its plain PyTorch version on the card,
    bit-exact, at the full-width shapes of every path (batch 8), at the
    layer entry points' shapes and on ragged cases;
@@ -70,12 +70,20 @@ POPC_PER_CLOCK_PER_SM = 16
 # XNOR contraction can also run as a +-1 int8 product at its true depth,
 # 2 ops per MAC, so its operations bound is the lesser of the two routes.
 INT8_OPS_PER_S = 1979e12
+TF32_OPS_PER_S = 495e12        # the same data sheet (dense, wgmma)
 # NVIDIA publishes no H100 rate for the 1-bit MMA K4 runs on; the script
 # measures its mma.sync peak (csrc/mma_probe.cu) and bounds with that.
 BIT_MACS_PER_B1_MMA = 16 * 8 * 256
 MACS_PER_S8_MMA = 16 * 8 * 32
+# K8's P.V holds 2e-5 on the CUDA cores' fp32 FMA or as three TF32
+# products (hi.hi + hi.lo + lo.hi) on the tensor cores.  The card's TF32
+# peak is the published one; the mma.sync m16n8k8 rate K8 issues at is
+# measured and printed beside it, and the bound takes the higher of the two.
+MACS_PER_TF32_MMA = 16 * 8 * 8
+TF32_PASSES = 3
 # ptxas must report 0 spills
-SPILL_FREE = ("bitplane_conv", "conv_bn_sign", "xnor_gemm")
+SPILL_FREE = ("bitplane_conv", "conv_bn_sign", "xnor_gemm",
+              "binary_attention")
 
 LM_SERVE = ((1, 16), (8, 16))            # the reference serves max_len 16
 LM_PREFILL = (1, 4608)                   # longer than the 4096 window
@@ -481,8 +489,9 @@ def sdpa_library(qp, kp, v, d, *, causal=True, window=None, q_offset=0):
 
 def attention_call(qp, kp, v, d, *, library=False, **kw):
     """K8 on packed Q/K and float32 V, held to its plain version within
-    ATTN_TOL.  Its work: per computed (q, k) pair, Dw word-ops for the
-    score and 2*Dv fp32 operations for P.V."""
+    ATTN_TOL.  Its work: per computed (q, k) pair, the score's XNOR
+    contraction (Dw word-ops, D 1-bit MACs) and 2*Dv operations for P.V
+    (fp32, or three times as many TF32 ones on the tensor cores)."""
     from repro_torch.kernels import binary_attention as ba
     from repro_torch.kernels import ref
     b, sq, hq, dw = qp.shape
@@ -505,7 +514,13 @@ def attention_call(qp, kp, v, d, *, library=False, **kw):
 def attention_cases(gen, dev) -> dict:
     """K8 at the LM's shapes (gemma2-9b's local and global layers at (1,
     4608) and at a served (8, 16); a starcoder2-3b layer at (1, 1024),
-    timed against SDPA) and on ragged cases, on random inputs."""
+    timed against SDPA) and on ragged cases, on random inputs: the
+    edges of its 64-row q tiles and 32-key KV tiles (Sq 65, Skv 129, a
+    last tile of one key), Dv 8 to 512 (two 256-dim blocks past 256), Dw
+    1 to 35 (D 17 to 1100: 1-4 k256 steps, the fragments from global
+    memory past 32 words), GQA groups 1 and 8, decode-like Sq 3 and the
+    16-row blocks of Sq <= 16, and V 4 bytes off 16-byte alignment
+    (4-byte copies)."""
     import torch
     from repro_torch import configs
     from repro_torch.core import binarize as B
@@ -531,12 +546,34 @@ def attention_cases(gen, dev) -> dict:
                                  dict(causal=False, window=7)),
         "Dv 300, dynamic shared memory": ((1, 20, 50, 2, 2, 64, 300),
                                            dict(attn_softcap=30.0)),
+        "Sq 65, Skv 129, group 1": ((2, 65, 129, 3, 3, 64, 64),
+                                    dict(window=40, attn_softcap=50.0)),
+        "Dv 8, D 17, group 8": ((1, 70, 70, 8, 1, 17, 8), {}),
+        "Dv 24, D 280, not causal": ((1, 33, 97, 4, 2, 280, 24),
+                                     dict(causal=False)),
+        "Dv 264, D 512": ((1, 65, 65, 2, 1, 512, 264),
+                          dict(attn_softcap=50.0)),
+        "Dv 512, D 1100, fragments from global memory": (
+            (1, 40, 33, 2, 1, 1100, 512), dict(window=9)),
+        "Sq 3, q_offset 126, Skv 129": ((2, 3, 129, 16, 8, 256, 256),
+                                        dict(q_offset=126, window=64,
+                                             attn_softcap=50.0)),
+        "a q tile with rows that see no key beside rows that do": (
+            (1, 70, 100, 2, 2, 40, 40), dict(window=5, q_offset=60)),
+        "V 4 bytes off 16-byte alignment": ((1, 65, 100, 4, 2, 256, 256),
+                                            dict(window=50,
+                                                 misaligned_v=True)),
+        "Sq 16, Dv 264: 16-row blocks, one warp with dims in the second": (
+            (1, 16, 40, 4, 2, 40, 264), dict(window=9, attn_softcap=50.0)),
     }
     out = {}
     for name, ((b, sq, skv, hq, hkv, d, dv), kw) in cases.items():
+        kw = dict(kw)
         qp = B.pack_bits(torch.randn((b, sq, hq, d), generator=gen).to(dev))
         kp = B.pack_bits(torch.randn((b, skv, hkv, d), generator=gen).to(dev))
         v = torch.randn((b, skv, hkv, dv), generator=gen).to(dev)
+        if kw.pop("misaligned_v", False):
+            v = misaligned(v)
         out[name] = attention_call(qp, kp, v, d, **kw)
     return out
 
@@ -760,9 +797,10 @@ def time_lm(packed, tokens, rates, dev) -> dict:
 
 
 def mma_peaks(dev, sms) -> dict:
-    """The mma.sync issue rates of the 1-bit (m16n8k256 .and.popc) and the
-    int8 (m16n8k32) steps on register operands, every SM busy
-    (csrc/mma_probe.cu): ops/s at 2 ops per MAC, best of 3 runs."""
+    """The mma.sync issue rates of the 1-bit (m16n8k256 .and.popc), the
+    int8 (m16n8k32) and the TF32 (m16n8k8) steps on register operands,
+    every SM busy (csrc/mma_probe.cu): ops/s at 2 ops per MAC, best of 3
+    runs."""
     import torch
     from repro_torch.kernels import _build
     lib = _build.load("mma_probe", {"mma_peak": "iiipp"})
@@ -772,7 +810,8 @@ def mma_peaks(dev, sms) -> dict:
     mmas = blocks * 8 * iters * 8          # warps x iterations x chains
     peaks = {}
     for key, kind, macs in (("b1_ops", 0, BIT_MACS_PER_B1_MMA),
-                            ("s8_mma_sync_ops", 1, MACS_PER_S8_MMA)):
+                            ("s8_mma_sync_ops", 1, MACS_PER_S8_MMA),
+                            ("tf32_ops", 2, MACS_PER_TF32_MMA)):
         def run():
             _build.check(lib.mma_peak(kind, blocks, iters, out.data_ptr(),
                                       stream), "mma_peak")
@@ -781,7 +820,8 @@ def mma_peaks(dev, sms) -> dict:
     log(f"tensor-core peaks measured (mma.sync on registers): 1-bit "
         f"m16n8k256 {peaks['b1_ops']:.5g} ops/s, int8 m16n8k32 "
         f"{peaks['s8_mma_sync_ops']:.5g} ops/s (published int8 dense "
-        f"{INT8_OPS_PER_S:.5g})")
+        f"{INT8_OPS_PER_S:.5g}), TF32 m16n8k8 {peaks['tf32_ops']:.5g} "
+        f"ops/s (published TF32 dense {TF32_OPS_PER_S:.5g})")
     return peaks
 
 
@@ -1140,9 +1180,16 @@ def bound_of(r, rates) -> None:
     An XNOR contraction's operations take the fastest route: XOR + POPC
     word-ops on the POPC pipe, or 2 ops per MAC at the true depth on the
     int8 tensor cores (published peak) or the 1-bit ones (peak measured
-    by this run); ``ops_route`` says which.  P.V's fp32 operations add
-    their own floor.  ``int8_bound_ms`` and ``popc_bound_ms`` keep the
-    bounds without the 1-bit route and with the POPC route alone."""
+    by this run); ``ops_route`` says which.  P.V's operations (K8) take
+    the faster route that holds 2e-5: fp32 on the CUDA cores, or three
+    TF32 products at the card's TF32 peak (the published one, or the
+    measured ``mma.sync`` rate if that is higher); on the tensor cores
+    they add to the scores' tensor-core time, on the CUDA cores they
+    overlap it.  ``fp32_bound_ms`` and ``tf32_bound_ms`` keep the
+    bound by each P.V route, ``tf32_mma_sync_ms`` the TF32 one at the
+    measured ``mma.sync`` rate.  ``int8_bound_ms`` and ``popc_bound_ms``
+    keep the bounds without the 1-bit route and with the POPC route
+    alone."""
     t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
     t_popc = r["word_ops"] / rates["popc"] * 1e3
     routes = {"int8 tensor cores": 2 * r["macs"] / INT8_OPS_PER_S * 1e3,
@@ -1153,13 +1200,28 @@ def bound_of(r, rates) -> None:
         if r["macs"] and t < t_xnor:
             t_xnor, r["ops_route"] = t, name
     t_fp32 = r["flops"] / FP32_FLOPS_PER_S * 1e3
+    on_tc = r["ops_route"] != "popc"
+
+    def tf32_route(peak):
+        t_tf32 = TF32_PASSES * r["flops"] / peak * 1e3
+        return t_tf32 + t_xnor if on_tc else max(t_tf32, t_xnor)
+
+    pv = {"fp32 (P.V)": max(t_xnor, t_fp32),
+          "3xTF32 tensor cores (P.V)":
+              tf32_route(max(TF32_OPS_PER_S, rates["tf32_ops"]))}
+    r["fp32_bound_ms"] = max(t_bytes, pv["fp32 (P.V)"])
+    r["tf32_bound_ms"] = max(t_bytes, pv["3xTF32 tensor cores (P.V)"])
+    # The same at the mma.sync rate K8 issues at: a diagnostic, not a bound.
+    r["tf32_mma_sync_ms"] = max(t_bytes, tf32_route(rates["tf32_ops"]))
     r["int8_bound_ms"] = max(t_bytes, min(t_popc, routes["int8 tensor cores"]),
                              t_fp32)
     if not r["word_ops"]:
         r["ops_route"] = "none"
-    if t_fp32 > t_xnor:
-        r["ops_route"] = "fp32 (P.V)"
-    t_ops = max(t_xnor, t_fp32)
+    t_ops = t_xnor
+    if r["flops"]:
+        name = min(pv, key=pv.get)
+        t_ops = pv[name]
+        r["ops_route"] = f"{name} + scores by {r['ops_route']}"
     r["bound_ms"] = max(t_bytes, t_ops)
     r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     r["popc_bound_ms"] = max(t_bytes, t_popc, t_fp32)
@@ -1171,10 +1233,14 @@ def log_table(what, rows) -> None:
                else f"{r['library_ms']:.5g}")
         also = ("" if not r["also_ms"] else
                 f"; {r['also_name']} {r['also_ms']:.5g} ms")
+        pv = ("" if not r["flops"] else
+              f"; P.V by fp32 {r['fp32_bound_ms']:.5g} ms, by 3xTF32 "
+              f"{r['tf32_bound_ms']:.5g} ms, by 3xTF32 at the measured "
+              f"mma.sync rate {r['tf32_mma_sync_ms']:.5g} ms")
         log(f"time {what} {k}: x{r['launches_per_forward']} per run, "
             f"kernel {r['ms']:.5g} ms, plain {r['plain_ms']:.5g} ms, "
             f"bound {r['bound_ms']:.5g} ms ({r['bound_by']}; operations by "
-            f"{r['ops_route']}; without the 1-bit route "
+            f"{r['ops_route']}{pv}; without the 1-bit route "
             f"{r['int8_bound_ms']:.5g} ms, the POPC route alone "
             f"{r['popc_bound_ms']:.5g} ms), library {lib} ms{also}")
 

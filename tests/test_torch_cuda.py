@@ -318,18 +318,76 @@ ATTN_TOL = dict(rtol=2e-5, atol=2e-5)
     ((1, 12, 20, 4, 2, 40, 40), dict(window=3, q_offset=15)),
     ((1, 9, 70, 2, 1, 33, 33), dict(causal=False, window=7)),
     ((1, 20, 50, 2, 2, 64, 300), dict(attn_softcap=30.0)),
-    ((1, 300, 300, 16, 8, 256, 256), dict(window=100, attn_softcap=50.0))])
+    ((1, 300, 300, 16, 8, 256, 256), dict(window=100, attn_softcap=50.0)),
+    # The tensor-core kernel's edges: 64-row q tiles and 32-key KV tiles
+    # (Sq 65, Skv 129: a last tile of one key), Dv 8/24/264/512 (two
+    # 256-dim blocks past 256), Dw 1/9/16/35 (D 17, 280, 512, 1100: the
+    # fragments from global memory past 32 words), GQA groups 1 and 8, no
+    # mask at all, a q tile with rows that see no key beside rows that do,
+    # decode-like Sq 3, and V 4 bytes off 16-byte alignment.
+    ((2, 65, 129, 3, 3, 64, 64), dict(window=40, attn_softcap=50.0)),
+    ((1, 70, 70, 8, 1, 17, 8), {}),
+    ((1, 33, 97, 4, 2, 280, 24), dict(causal=False)),
+    ((1, 65, 65, 2, 1, 512, 264), dict(attn_softcap=50.0)),
+    ((1, 40, 33, 2, 1, 1100, 512), dict(window=9)),
+    ((2, 16, 16, 16, 8, 256, 256), dict(causal=False)),
+    ((1, 70, 100, 2, 2, 40, 40), dict(window=5, q_offset=60)),
+    ((2, 3, 129, 16, 8, 256, 256), dict(q_offset=126, window=64,
+                                        attn_softcap=50.0)),
+    ((1, 65, 100, 4, 2, 256, 256), dict(window=50, misaligned_v=True)),
+    # 16-row blocks (Sq <= 16) over two 256-dim blocks, the second of 8
+    # dims: one warp of four has dims there.
+    ((1, 16, 40, 4, 2, 40, 264), dict(window=9, attn_softcap=50.0))])
 def test_attention_kernel(dev, shape, kw):
     b, sq, skv, hq, hkv, d, dv = shape
+    kw = dict(kw)
     gen = torch.Generator().manual_seed(sq * skv + d)
     qp = B.pack_bits(torch.randn((b, sq, hq, d), generator=gen)).to(dev)
     kp = B.pack_bits(torch.randn((b, skv, hkv, d), generator=gen)).to(dev)
     v = torch.randn((b, skv, hkv, dv), generator=gen).to(dev)
+    if kw.pop("misaligned_v", False):
+        v = _misaligned(v)
+        assert v.data_ptr() % 16 == 4 and v.is_contiguous()
     got = batt.binary_attention_packed(qp, kp, v, d_true=d, **kw)
     want = ref.binary_attention_packed_ref(qp, kp, v, d_true=d, **kw)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, **ATTN_TOL)
+
+
+@pytest.mark.parametrize("shape,kw", [
+    ((1, 16, 40, 4, 2, 40, 24), dict(window=9, attn_softcap=50.0)),
+    ((1, 65, 70, 2, 1, 17, 40), dict(causal=False))])
+def test_attention_kernel_counts_bits_past_d(dev, shape, kw):
+    """K words with random bits past D in their last word.  The kernel
+    counts each as a mismatch, as the reference's Pallas kernel does: the
+    score is D - 2 popc(q ^ k) over the whole words.  The plain version
+    gives that score on the whole words unpacked to +-1, with one more
+    column, +1 in Q and -1 in K, for each of the 32 Dw - D bits past D."""
+    b, sq, skv, hq, hkv, d, dv = shape
+    kw = dict(kw)
+    gen = torch.Generator().manual_seed(sq * skv + d)
+    qp = B.pack_bits(torch.randn((b, sq, hq, d), generator=gen))
+    kp = B.pack_bits(torch.randn((b, skv, hkv, d), generator=gen))
+    full = 32 * kp.shape[-1]
+    tail = torch.randint(0, 2 ** 31, kp.shape[:-1], generator=gen,
+                         dtype=torch.int64) << (d % 32) & (2 ** 32 - 1)
+    kp[..., -1] = B.to_words(B.from_words(kp[..., -1]) | tail)
+    v = torch.randn((b, skv, hkv, dv), generator=gen)
+    assert (B.from_words(kp[..., -1]) >> (d % 32)).any()
+    got = batt.binary_attention_packed(qp.to(dev), kp.to(dev), v.to(dev),
+                                       d_true=d, **kw)
+    extra = full - d
+    qb = torch.cat([B.unpack_bits(qp, full),
+                    torch.ones((b, sq, hq, extra))], -1)
+    kb = torch.cat([B.unpack_bits(kp, full),
+                    -torch.ones((b, skv, hkv, extra))], -1)
+    want = ref._attention_pm1(
+        qb, kb, v, scale=batt.attention_scale(d),
+        causal=kw.pop("causal", True), window=kw.pop("window", None),
+        attn_softcap=kw.pop("attn_softcap", None), q_offset=0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want, **ATTN_TOL)
 
 
 def test_attention_cuda_backend_refuses_cpu_tensors(dev):

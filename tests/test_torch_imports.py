@@ -50,7 +50,8 @@ def test_port_sources_name_no_jax_or_reference_import():
     """Also the imports inside functions, which an import probe only
     reaches when they run."""
     files = [os.path.join(REPO, n)
-             for n in ("chip_smoke.py", "chip_conv_tiles.py")]
+             for n in ("chip_smoke.py", "chip_conv_tiles.py",
+                       "chip_attention_times.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     bad = [(f, m) for f in files for m in _imports(f)
