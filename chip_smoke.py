@@ -8,9 +8,9 @@ Phases, each printing its lines:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every CUDA kernel of ``src/repro_torch/csrc``, one ``nvcc``
    per source in parallel, with the ptxas register/shared-memory report
-   (a spill in K1, K3/K7, K4 or K8 fails the run), then the tensor cores'
-   1-bit, int8 and TF32 ``mma.sync`` peaks (``csrc/mma_probe.cu``), which
-   the bounds use;
+   (a spill in K1, K3/K7, K4, K5, K6 or K8 fails the run), then the
+   tensor cores' 1-bit, int8 and TF32 ``mma.sync`` peaks
+   (``csrc/mma_probe.cu``), which the bounds use;
 3. kernels: each kernel against its plain PyTorch version on the card,
    bit-exact, at the full-width shapes of every path (batch 8), at the
    layer entry points' shapes and on ragged cases;
@@ -36,7 +36,9 @@ Phases, each printing its lines:
    beside its plain version, its bound and a library call; the attention
    kernel at each of its shapes and one local and one global LM layer;
    each forward per batch and mode, fed from host memory as a request
-   arrives and from the card; and K4 on both sides of
+   arrives and from the card, and at batches 1 and 256 as a CUDA graph
+   (the card's own time); the hidden stack at every batch, K6 in every
+   tile beside K4-fused per layer; and K4 on both sides of
    ``binary_matmul.SMALL_M_MAX`` at the LM's widths.
 
 Every kernel is held to its plain version exactly, but for the attention
@@ -49,6 +51,7 @@ script exits non-zero without that line.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -83,7 +86,7 @@ MACS_PER_TF32_MMA = 16 * 8 * 8
 TF32_PASSES = 3
 # ptxas must report 0 spills
 SPILL_FREE = ("bitplane_conv", "conv_bn_sign", "xnor_gemm",
-              "binary_attention")
+              "binary_attention", "bitpack", "dense_stack")
 
 LM_SERVE = ((1, 16), (8, 16))            # the reference serves max_len 16
 LM_PREFILL = (1, 4608)                   # longer than the 4096 window
@@ -866,6 +869,74 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Per-call ms of ``reps`` calls captured in one CUDA graph and
+    replayed: the card's own time, without the host's launch cost (best of
+    5 replays)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.replay()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / reps)
+    return best
+
+
+def time_dense_stack(what, calls_of, inputs, rates, dev) -> None:
+    """The hidden stack at every batch: K6 ('auto', in the tile its rule
+    picks and in every other) beside the route it must beat, K4-fused once
+    per layer ('per_layer'), each on the stack's input as the forward
+    gives it.  Eager (CUDA events over back-to-back calls) at every batch,
+    and as a CUDA graph (the card's own time) at batches 1 and 8, where
+    the host's launch cost is the eager time.  Prints K6's bound."""
+    from repro_torch.kernels import binary_matmul as bmm
+    for b in BATCHES:
+        x = inputs[b].to(dev)
+        stack = [c for c in calls_of(x, "auto") if c.name == "dense_stack"]
+        fused = [c for c in calls_of(x, "per_layer")
+                 if c.name == "xnor_gemm_bn_sign"]
+        rows = kernel_table(stack + fused, rates, kernel_reps=20,
+                            plain_reps=1)
+        k6, k4 = rows["dense_stack"], rows["xnor_gemm_bn_sign"]
+        weights = stack[0].kernel.args[1]
+        fit = bmm.stack_clusters(dev, bmm.stack_buffer_words(weights))
+        line = (f"time dense_stack {what} B={b}: K6 {k6['ms']:.5g} ms in "
+                f"tile {bmm.stack_tile(b, fit)} (clusters that fit at once "
+                f"{fit}), K4-fused x"
+                f"{k4['launches_per_forward']} {k4['ms']:.5g} ms, K6 / "
+                f"K4-fused {k6['ms'] / k4['ms']:.4g}; K6 bound "
+                f"{k6['bound_ms']:.5g} ms ({k6['bound_by']}), K4-fused "
+                f"bound {k4['bound_ms']:.5g} ms")
+        if b <= 8:
+            g6 = graph_ms(stack[0].kernel)
+            g4 = graph_ms(lambda: [c.kernel() for c in fused])
+            line += (f"; as a CUDA graph K6 {g6:.5g} ms, K4-fused "
+                     f"{g4:.5g} ms")
+        tiles = []
+        for tile in bmm.STACK_TILES:
+            with forced_stack_tile(tile):
+                t = f"{tile} {time_ms(stack[0].kernel, 20):.5g}"
+                if b <= 8:
+                    t += f" (graph {graph_ms(stack[0].kernel):.5g})"
+            tiles.append(t)
+        log(line + "; K6 in each tile: " + ", ".join(tiles) + " ms")
+
+
 def check_equal(what: str, got, want) -> None:
     import torch
     torch.cuda.synchronize()
@@ -926,9 +997,9 @@ def check_calls(what: str, calls) -> None:
 
 
 def ragged_checks(gen, dev) -> list[str]:
-    """Ragged shapes: channel and K tails, N 10 and 40, M 1, stride 2, and
-    the edges of K4's, K3/K7's and K1's tiles (GEMM_RAGGED, CONV_RAGGED,
-    BITPLANE_RAGGED)."""
+    """Ragged shapes: channel and K tails, N 10 and 40, M 1, stride 2, both
+    of K5's paths, and the edges of K4's, K6's (every tile), K3/K7's and
+    K1's tiles (GEMM_RAGGED, STACK_RAGGED, CONV_RAGGED, BITPLANE_RAGGED)."""
     import torch
     from repro_torch.core import binarize as B
     from repro_torch.kernels import binary_conv as bconv
@@ -955,18 +1026,27 @@ def ragged_checks(gen, dev) -> list[str]:
                     ref.bn_sign_pack_ref(x, tau, flip))
         done.append(f"bn_sign_pack M={m} C={c}")
     for m in (1, 37):
-        for k in (1, 31, 33, 784, 1000):
+        for k in (1, 31, 33, 784, 1000) + BITPACK_ALIGNED:
             x = torch.randn((m, k), generator=gen)
             x.view(-1)[torch.randint(0, m * k, (max(1, m * k // 7),),
                                      generator=gen)] = -0.0
             x.view(-1)[torch.randint(0, m * k, (max(1, m * k // 11),),
                                      generator=gen)] = float("nan")
+            x.view(-1)[torch.randint(0, m * k, (max(1, m * k // 13),),
+                                     generator=gen)] = 1.17549435e-38
+            x.view(-1)[torch.randint(0, m * k, (max(1, m * k // 13),),
+                                     generator=gen)] = -1.17549435e-38
             x[0, 0] = -0.0
             x = x.to(dev)
-            check_equal(f"bitpack M={m} K={k}", bp.bitpack(x),
-                        ref.bitpack_ref(x))
-    done.append("bitpack M in (1, 37) x K in (1, 31, 33, 784, 1000), with "
-                "-0.0 and NaN")
+            for xx in (x, misaligned(x)):   # 4 bytes off: the general path
+                aligned = bp.packs_aligned(k, xx.data_ptr())
+                if aligned != (k in BITPACK_ALIGNED and xx is x):
+                    raise AssertionError(f"bitpack M={m} K={k}: path rule")
+                check_equal(f"bitpack M={m} K={k} aligned path {aligned}",
+                            bp.bitpack(xx), ref.bitpack_ref(xx))
+    done.append(f"bitpack M in (1, 37) x K in (1, 31, 33, 784, 1000) on the "
+                f"general path and K in {BITPACK_ALIGNED} on both, with -0.0,"
+                f" NaN and the tiniest normals")
     for m, n, k, shift in GEMM_RAGGED:
         a = B.pack_bits(pm1(m, k)).to(dev)
         w = B.pack_bits(pm1(n, k)).to(dev)
@@ -986,21 +1066,22 @@ def ragged_checks(gen, dev) -> list[str]:
                                                      k_true=k),
                     ref.binary_matmul_bn_sign_packed_ref(a, w, tau, flip, k))
         done.append(f"xnor_gemm(+bn_sign) {what}")
-    for m in (1, 3, 9, 37):
-        k = 100
-        x = B.pack_bits(pm1(m, k)).to(dev)
+    for what, (sizes, k, ms) in STACK_RAGGED.items():
         stages = []
-        for n in (40, 96, 10):
+        for n in sizes:
             tau, flip = bn(n, k)
             stages.append({"w_packed": B.pack_bits(pm1(n, k)).to(dev),
                            "k_true": k, "tau": tau, "flip": flip})
             k = n
-        check_equal(f"dense_stack M={m}", bmm.binary_dense_stack_packed(
-            x, [s["w_packed"] for s in stages], [s["tau"] for s in stages],
-            [s["flip"] for s in stages],
-            k_trues=[s["k_true"] for s in stages]),
-            ref.binary_dense_stack_packed_ref(stages, x))
-        done.append(f"dense_stack 100 -> 40 -> 96 -> 10, M={m}")
+        for m in ms:
+            x = B.pack_bits(pm1(m, stages[0]["k_true"])).to(dev)
+            want = ref.binary_dense_stack_packed_ref(stages, x)
+            for tile in bmm.STACK_TILES:
+                with forced_stack_tile(tile):
+                    check_equal(f"dense_stack {what} M={m} tile {tile}",
+                                stack_launch(x, stages), want)
+        done.append(f"dense_stack {what}, M in {ms}, every tile "
+                    f"{bmm.STACK_TILES}")
     def conv_case(bsz, hw, c_in, c_out, stride, padding, shift=False):
         plan = bconv.make_conv_plan(pm1(c_out, 3, 3, c_in), input_hw=hw,
                                     stride=stride, padding=padding)
@@ -1055,6 +1136,19 @@ GEMM_RAGGED = ((1, 10, 1000, False), (3, 10, 33, False),
                (4608, 14336, 3584, False), (129, 136, 3584, True),
                (15, 40, 3584, True), (4608, 136, 33, True),
                (2048, 4096, 100, True))
+# K6 stacks, (sizes, K_0, the M edges): stage widths that do not split into
+# whole words per block (the last blocks take fewer words or none), the
+# kernel's 16 stages, the BCNN's 256-word first stage and the BMLP's stack;
+# M below, at and past one 16- and 32-row tile.
+STACK_RAGGED = {
+    "100 -> 40 -> 96 -> 10": ((40, 96, 10), 100, (1, 15, 16, 17, 33, 37)),
+    "16 stages": ((64, 33, 100, 32, 7, 64, 200, 31, 96, 40, 128, 9, 64, 64,
+                   250, 10), 70, (1, 37)),
+    "8192 -> 1024 -> 1024": ((1024, 1024), 8192, (1, 17, 65)),
+    "4096 -> 4096 -> 4096": ((4096, 4096), 4096, (1, 17, 65, 300)),
+}
+# K5's aligned path: the LM's and Table 1's widths.
+BITPACK_ALIGNED = (256, 3584, 4096, 8192)
 # K3/K7 edges of the tensor-core tiling, (B, hw, C_in, C_out, stride,
 # padding, misaligned): the BCNN's five packed-conv stages at batch 2
 # (Cw 4, 8, 16: 4.5, 9 and 18 k256 steps), C_out 10, 40 and 136, inputs of
@@ -1084,6 +1178,26 @@ BITPLANE_RAGGED = (((9, 9), 33, 40, 2, "SAME", 1),
                    ((32, 32), 256, 64, 1, "SAME", 8),
                    ((32, 32), 512, 40, 1, "SAME", 8),
                    ((4, 224), 128, 72, 1, "SAME", 8))
+
+
+@contextlib.contextmanager
+def forced_stack_tile(tile):
+    """K6 launched in ``tile`` (R, C) whatever its tile rule says."""
+    from repro_torch.kernels import binary_matmul as bmm
+    rule = bmm.stack_tile
+    bmm.stack_tile = lambda m, sms: tile
+    try:
+        yield
+    finally:
+        bmm.stack_tile = rule
+
+
+def stack_launch(x, stages):
+    """K6 on ``stages`` ({"w_packed", "k_true", "tau", "flip"} each)."""
+    from repro_torch.kernels import binary_matmul as bmm
+    return bmm.binary_dense_stack_packed(
+        x, [s["w_packed"] for s in stages], [s["tau"] for s in stages],
+        [s["flip"] for s in stages], k_trues=[s["k_true"] for s in stages])
 
 
 def misaligned(t):
@@ -1238,7 +1352,9 @@ def log_table(what, rows) -> None:
               f"{r['tf32_bound_ms']:.5g} ms, by 3xTF32 at the measured "
               f"mma.sync rate {r['tf32_mma_sync_ms']:.5g} ms")
         log(f"time {what} {k}: x{r['launches_per_forward']} per run, "
-            f"kernel {r['ms']:.5g} ms, plain {r['plain_ms']:.5g} ms, "
+            f"kernel {r['ms']:.5g} ms ({r['bytes'] / r['ms'] * 1e3:.5g} "
+            f"bytes/s, {r['bound_ms'] / r['ms']:.4g} of its bound), plain "
+            f"{r['plain_ms']:.5g} ms, "
             f"bound {r['bound_ms']:.5g} ms ({r['bound_by']}; operations by "
             f"{r['ops_route']}{pv}; without the 1-bit route "
             f"{r['int8_bound_ms']:.5g} ms, the POPC route alone "
@@ -1326,10 +1442,14 @@ def time_forwards(what, packed, inputs) -> None:
             reps = 20 if b < 256 else 10
             ms_host = time_ms(lambda: fwd(inputs[b]), reps)
             ms = time_ms(lambda: fwd(x), reps)
-            log(f"forward {what} {mode} B={b}: {ms_host:.5g} ms per batch "
-                f"from host memory ({b / ms_host * 1e3:.6g} per s), {ms:.5g} "
-                f"ms with the batch already on the card "
-                f"({b / ms * 1e3:.6g} per s)")
+            line = (f"forward {what} {mode} B={b}: {ms_host:.5g} ms per batch "
+                    f"from host memory ({b / ms_host * 1e3:.6g} per s), "
+                    f"{ms:.5g} ms with the batch already on the card "
+                    f"({b / ms * 1e3:.6g} per s)")
+            if b in (1, 256):   # the card's own time, without the host's
+                line += (f"; as a CUDA graph "
+                         f"{graph_ms(lambda: fwd(x), reps=5):.5g} ms")
+            log(line)
 
 
 def main() -> int:
@@ -1510,6 +1630,10 @@ def main() -> int:
     log_table(f"binary_matmul {MATMUL_SIZE}^2", mm_rows)
     time_forwards("bcnn", bcnn, bcnn_in)
     time_forwards("bmlp", bmlp, bmlp_in)
+    time_dense_stack("bcnn", functools.partial(bcnn_calls, bcnn), bcnn_in,
+                     rates, dev)
+    time_dense_stack("bmlp", functools.partial(bmlp_calls, bmlp), bmlp_in,
+                     rates, dev)
     for what, packed, x, fwd in (
             ("bcnn", bcnn, bcnn_in[256], cnn.bcnn_forward_packed),
             ("bmlp", bmlp, bmlp_in[256], cnn.bmlp_forward_packed)):

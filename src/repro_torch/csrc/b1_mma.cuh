@@ -99,9 +99,9 @@ __device__ __forceinline__ void mma_b1(int32_t (&c)[4], const uint32_t (&a)[4],
 }
 
 // Copy rows [row0, row0 + kRows) x words [k0, k0 + kBK) of a (rows, Kw)
-// word matrix into dst[kRows][kLds], zero-filling outside it.  kVec16 needs
-// Kw % 4 == 0 and a 16-byte aligned matrix.
-template <int kRows, int kThreads, bool kVec16>
+// word matrix into dst[kRows][kStride], zero-filling outside it.  kVec16
+// needs Kw % 4 == 0 and a 16-byte aligned matrix.
+template <int kRows, int kThreads, bool kVec16, int kStride = kLds>
 __device__ __forceinline__ void load_tile(uint32_t* dst,
                                           const uint32_t* __restrict__ src,
                                           int rows, int Kw, int row0, int k0) {
@@ -113,7 +113,7 @@ __device__ __forceinline__ void load_tile(uint32_t* dst,
       const bool in = row0 + r < rows && k < Kw;  // Kw % 4 == 0 here
       const uint32_t* s =
           in ? src + static_cast<long long>(row0 + r) * Kw + k : src;
-      cp_async16(dst + r * kLds + (i % kPerRow) * 4, s, in ? 16 : 0);
+      cp_async16(dst + r * kStride + (i % kPerRow) * 4, s, in ? 16 : 0);
     }
   } else {
     for (int i = threadIdx.x; i < kRows * kBK; i += kThreads) {
@@ -122,7 +122,7 @@ __device__ __forceinline__ void load_tile(uint32_t* dst,
       const bool in = row0 + r < rows && k < Kw;
       const uint32_t* s =
           in ? src + static_cast<long long>(row0 + r) * Kw + k : src;
-      cp_async4(dst + r * kLds + i % kBK, s, in ? 4 : 0);
+      cp_async4(dst + r * kStride + i % kBK, s, in ? 4 : 0);
     }
   }
 }

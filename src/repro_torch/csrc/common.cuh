@@ -4,9 +4,10 @@
 // packed along the last (channel) axis, zero-bit tails.  PyTorch hands the
 // words over as int32 tensors; the kernels read them as uint32_t.
 //
-// The warp-per-word kernels (K2, K6 and K4's small-M route) map one warp to
-// one group of 32 output channels of one output row, lane = channel, so
-// the fused epilogue packs a whole output word with one __ballot_sync.
+// The warp-per-word kernels (K2, K4's small-M route and K5's general path)
+// map one warp to one output word, lane = channel or element, so one
+// __ballot_sync packs the whole word (bn_sign_ballot is K2's and K4's
+// fused epilogue).
 #pragma once
 
 #include <cstdint>

@@ -15,8 +15,9 @@ is ``binarize.packed_mismatches``.
 
 :func:`binary_dense_stack_packed` (K6, ``csrc/dense_stack.cu``) runs a
 whole chain of hidden layers, each GEMM + BN-sign + re-bitpack, in one
-launch; :func:`dense_stack_fits` is the shape rule that decides when a
-stack takes it (``kernels.ops.binary_dense_stack_packed``).
+launch of thread-block clusters on the same 1-bit MMA, in the tile
+:func:`stack_tile` picks; :func:`dense_stack_fits` is the shape rule that
+decides when a stack takes it (``kernels.ops.binary_dense_stack_packed``).
 
 Each wrapper launches its kernel and takes CUDA tensors only;
 ``kernels/ops.py`` routes CPU tensors to the plain versions
@@ -33,6 +34,8 @@ from repro_torch.core import binarize as B
 from repro_torch.kernels import _build
 
 _ENTRIES = {"xnor_gemm": "pppiiiiiip", "xnor_gemm_bn_sign": "pppppiiiiiip"}
+_STACK_ENTRIES = {"dense_stack": "ppppiiiiiiip",
+                  "dense_stack_clusters": "iiip"}
 
 # K4's routes (csrc/xnor_gemm.cu), chosen by shape.  Up to SMALL_M_MAX
 # rows of A the weight bytes bind and the XOR + POPC kernel reads each
@@ -45,20 +48,28 @@ _ENTRIES = {"xnor_gemm": "pppiiiiiip", "xnor_gemm_bn_sign": "pppppiiiiiip"}
 SMALL_M_MAX = 8
 ROUTE_SMALL, ROUTE_MMA_64, ROUTE_MMA_128 = 0, 1, 2
 
-# The H100 residency rule of the single-launch stack (K6).  Its M tiles
-# run on different SMs and each one reads the whole stack, so the stack
-# is worth one launch when its weights and folded thresholds stay hot in
-# the 50 MB L2 while the activation tiles stream: 16 MiB, a third of L2,
-# leaves the rest to the activations and to whatever else runs.  A stack
-# also needs the two activation buffers of its largest M tile in one
-# block's shared memory (232,448 bytes on the H100).  The reference's
-# rule (``dense_stack_fits_vmem``) sizes the same decision against an
-# 8 MiB VMEM budget; both resolve the BMLP's and the BCNN's stacks to the
-# single launch.
+# The H100 residency rule of the single-launch stack (K6).  A thread-block
+# cluster of C blocks owns an M tile of R rows (:func:`stack_tile`); each
+# block reads its slice of every stage's weights once per cluster, and all
+# clusters read the whole stack, so the stack is worth one launch when its
+# weights and folded thresholds stay hot in the 50 MB L2 while the clusters
+# stream them: 16 MiB, a third of L2, leaves the rest to the activations
+# and to whatever else runs.  A block also needs the two activation buffers
+# of its R rows (row stride :func:`stack_row_stride`) beside its weight
+# ring in shared memory (232,448 bytes on the H100), at the largest R the
+# tile rule takes.  The reference's rule (``dense_stack_fits_vmem``) sizes
+# the same decision against an 8 MiB VMEM budget; both resolve the BMLP's
+# and the BCNN's stacks to the single launch.
 STACK_L2_BUDGET_BYTES = 16 * 2**20
 STACK_SMEM_BYTES = 232_448
-STACK_MAX_TILE_ROWS = 8       # csrc/dense_stack.cu: kMaxTileRows
+STACK_RING_BYTES = 3 * (256 * 48 + 512) * 4   # dense_stack.cu: kRingBytes
+STACK_MAX_TILE_ROWS = 32      # the largest R of stack_tile
 STACK_MAX_STAGES = 16         # csrc/dense_stack.cu: kMaxStages
+# K6's tiles, (R rows of M, C blocks a cluster), in the tile rule's order
+# of preference: R is one or two m16 fragments of the 1-bit MMA; C = 8 is
+# the portable cluster size, 16 needs the non-portable opt-in
+# (csrc/dense_stack.cu sets it).
+STACK_TILES = ((16, 16), (16, 8), (32, 8))
 
 
 def fills_card(m: int, n: int, tile: tuple[int, int], sms: int) -> bool:
@@ -156,23 +167,80 @@ def dense_stack_bytes(weights: list) -> int:
                for w in weights)
 
 
-def _buffer_words(weights: list) -> int:
+def stack_buffer_words(weights: list) -> int:
     """Words of one activation row buffer: the widest packed activation
     of the stack, its input included."""
     return max([int(weights[0].shape[1])]
                + [B.packed_width(int(w.shape[0])) for w in weights])
 
 
+def stack_tile(m: int, fit: dict) -> tuple[int, int]:
+    """K6's tile for M rows, (R, C), given ``fit``: how many clusters of
+    each tile fit the card at once (:func:`stack_clusters`).  The first of
+    (16, 16), (16, 8), (32, 8) whose ceil(M / R) clusters all fit at once:
+    clusters of 16 blocks while they fit (each block streams a sixteenth
+    of the stack), then of 8; tiles of 32 rows (the weights read half as
+    often) once 16-row clusters would run in two waves.  On the H100, 7
+    clusters of 16 and 15 of 8 fit (``chip_smoke.py`` times every tile at
+    every batch)."""
+    for rows, cluster in STACK_TILES[:-1]:
+        if -(-m // rows) <= fit[rows, cluster]:
+            return rows, cluster
+    return STACK_TILES[-1]
+
+
+@functools.lru_cache(maxsize=None)
+def stack_clusters(dev, buf_words: int) -> dict:
+    """How many clusters of each tile in ``STACK_TILES`` fit CUDA device
+    ``dev`` at once, for activation rows of ``buf_words`` words: the
+    cluster launch's occupancy query (``cudaOccupancyMaxActiveClusters``),
+    0 where the tile's buffers do not fit a block."""
+    lib = _build.load("dense_stack", _STACK_ENTRIES)
+    with torch.cuda.device(dev):
+        fit = {}
+        for rows, cluster in STACK_TILES:
+            n = ctypes.c_int(0)
+            _build.check(lib.dense_stack_clusters(
+                rows, cluster, stack_row_stride(buf_words),
+                ctypes.addressof(n)), "dense_stack_clusters")
+            fit[rows, cluster] = n.value
+    return fit
+
+
+def stack_row_stride(buf_words: int) -> int:
+    """K6's activation row stride in words for rows of ``buf_words``: whole
+    32-word chunks, then 16 mod 32, so the 16-byte fragment loads of two
+    rows fall on 32 banks (csrc/dense_stack.cu)."""
+    return -(-buf_words // 32) * 32 + 16
+
+
+def stack_smem_bytes(rows: int, buf_words: int) -> int:
+    """K6's shared memory a block: the weight ring and two activation
+    buffers of ``rows`` rows."""
+    return STACK_RING_BYTES + 2 * rows * stack_row_stride(buf_words) * 4
+
+
 def dense_stack_fits(weights: list) -> bool:
     """Residency decision for K6, pure shape math: (a) the stack's
-    weights and thresholds fit ``STACK_L2_BUDGET_BYTES`` and (b) two
-    activation buffers of the largest M tile fit one block's shared
-    memory (and the stack has at most ``STACK_MAX_STAGES`` stages)."""
+    weights and thresholds fit ``STACK_L2_BUDGET_BYTES`` and (b) a block's
+    weight ring and the two activation buffers of the largest M tile fit
+    its shared memory (and the stack has at most ``STACK_MAX_STAGES``
+    stages)."""
     if not weights or len(weights) > STACK_MAX_STAGES:
         return False
-    smem = 2 * STACK_MAX_TILE_ROWS * _buffer_words(weights) * 4
+    smem = stack_smem_bytes(STACK_MAX_TILE_ROWS, stack_buffer_words(weights))
     return (dense_stack_bytes(weights) <= STACK_L2_BUDGET_BYTES
             and smem <= STACK_SMEM_BYTES)
+
+
+_STAGE_NAMES = [(f"weights[{s}]", f"taus[{s}]", f"flips[{s}]")
+                for s in range(STACK_MAX_STAGES)]
+
+
+@functools.lru_cache(maxsize=None)
+def _stack_tables(n_stages: int):
+    """The ctypes array types of K6's pointer and size tables."""
+    return ctypes.c_uint64 * (3 * n_stages), ctypes.c_int * (3 * n_stages)
 
 
 def binary_dense_stack_packed(x_packed: torch.Tensor, weights: list,
@@ -184,9 +252,11 @@ def binary_dense_stack_packed(x_packed: torch.Tensor, weights: list,
     (N_s, Kw_s) words, then the folded BN ``taus[s]``/``flips[s]`` (N_s,)
     f32 and re-bitpacks.  ``Kw_0`` must be the input's width and ``Kw_s``
     must be ceil(N_{s-1}/32).  Returns (M, ceil(N_last/32)) words,
-    bit-identical to chaining :func:`binary_matmul_bn_sign_packed`.  The M
-    tile (ceil(M / SMs) rows, 1 to 8) stays inside this wrapper.  Adds one
-    to ``binary_dense_stack_packed.launches`` per kernel launch.
+    bit-identical to chaining :func:`binary_matmul_bn_sign_packed`.  The
+    tile, R rows of M to a cluster of C blocks (:func:`stack_tile`), stays
+    inside this wrapper; a stack whose buffers do not fit a block's shared
+    memory at that R raises ``ValueError``.  Adds one to
+    ``binary_dense_stack_packed.launches`` per kernel launch.
     """
     dev = _build.cuda_device(x_packed, "x_packed")
     n_stages = len(weights)
@@ -198,36 +268,42 @@ def binary_dense_stack_packed(x_packed: torch.Tensor, weights: list,
             f"{len(taus)} taus, {len(flips)} flips, {len(k_trues)} k_trues")
     m, kw0 = x_packed.shape
     px = _build.require(x_packed, "x_packed", torch.int32, (m, kw0), dev)
-    ptrs, ns, kws = [], [], []
-    prev = kw0
+    # One pass over the stages: the pointer and size tables of the launch
+    # (csrc/dense_stack.cu: w_0.., tau_0.., flip_0..; N_0.., Kw_0..,
+    # k_true_0..), the widest activation row and the copy width.
+    ptrs = [0] * (3 * n_stages)
+    dims = [0] * (3 * n_stages)
+    rows16 = [(px, kw0)]
+    prev = buf_words = kw0
     for s, w in enumerate(weights):
         n, kw = w.shape
         if kw != prev:
             raise ValueError(f"stage {s} weights are {kw} words wide, its "
                              f"input is {prev} words")
-        ptrs.append(_build.require(w, f"weights[{s}]", torch.int32, (n, kw),
-                                   dev))
-        ns.append(n)
-        kws.append(kw)
+        w_name, tau_name, flip_name = _STAGE_NAMES[s]
+        ptrs[s] = _build.require(w, w_name, torch.int32, (n, kw), dev)
+        ptrs[n_stages + s] = _build.require(taus[s], tau_name, torch.float32,
+                                            (n,), dev)
+        ptrs[2 * n_stages + s] = _build.require(flips[s], flip_name,
+                                                torch.float32, (n,), dev)
+        dims[s], dims[n_stages + s] = n, kw
+        dims[2 * n_stages + s] = int(k_trues[s])
+        rows16.append((ptrs[s], kw))
         prev = B.packed_width(n)
-    ptrs += [_build.require(t, f"taus[{s}]", torch.float32, (n,), dev)
-             for s, (t, n) in enumerate(zip(taus, ns))]
-    ptrs += [_build.require(f, f"flips[{s}]", torch.float32, (n,), dev)
-             for s, (f, n) in enumerate(zip(flips, ns))]
-    buf_words = _buffer_words(weights)
-    if 2 * STACK_MAX_TILE_ROWS * buf_words * 4 > STACK_SMEM_BYTES:
+        buf_words = max(buf_words, prev)
+    rows, cluster = stack_tile(m, stack_clusters(dev, buf_words))
+    if stack_smem_bytes(rows, buf_words) > STACK_SMEM_BYTES:
         raise ValueError(f"activation rows of {buf_words} words do not fit "
-                         f"the stack kernel's shared memory")
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    tile_rows = min(STACK_MAX_TILE_ROWS, max(1, -(-m // sms)))
+                         f"the stack kernel's shared memory at {rows} rows")
     out = torch.empty((m, prev), dtype=torch.int32, device=dev)
-    ptr_arr = (ctypes.c_uint64 * len(ptrs))(*ptrs)
-    dim_arr = (ctypes.c_int * (3 * n_stages))(
-        *ns, *kws, *(int(k) for k in k_trues))
-    lib = _build.load("dense_stack", {"dense_stack": "ppppiiiiip"})
+    ptr_type, dim_type = _stack_tables(n_stages)
+    ptr_arr, dim_arr = ptr_type(*ptrs), dim_type(*dims)
+    lib = _build.load("dense_stack", _STACK_ENTRIES)
     err = lib.dense_stack(px, out.data_ptr(), ctypes.addressof(ptr_arr),
-                          ctypes.addressof(dim_arr), n_stages, m, kw0,
-                          tile_rows, buf_words, _build.stream_of(x_packed))
+                          ctypes.addressof(dim_arr), n_stages, m, kw0, rows,
+                          cluster, stack_row_stride(buf_words),
+                          int(rows_aligned16(*rows16)),
+                          _build.stream_of(x_packed))
     _build.check(err, "dense_stack")
     binary_dense_stack_packed.launches += 1
     return out

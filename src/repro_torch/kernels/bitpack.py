@@ -8,8 +8,11 @@ operands of ``ops.binary_matmul`` and ``ops.binary_conv2d``) are packed
 by this kernel at every call.  Its plain version is
 ``binarize.pack_bits``.
 
-The wrapper launches the kernel and takes CUDA tensors only;
-``kernels/ops.py`` routes CPU tensors to the plain version.
+The kernel has two paths (``csrc/bitpack.cu``), chosen by shape and
+alignment (:func:`packs_aligned`): rows of whole words on 16 bytes take
+16-byte loads, several in flight a lane; any other input one warp per
+output word.  The wrapper launches the kernel and takes CUDA tensors
+only; ``kernels/ops.py`` routes CPU tensors to the plain version.
 """
 from __future__ import annotations
 
@@ -17,6 +20,13 @@ import torch
 
 from repro_torch.core import binarize as B
 from repro_torch.kernels import _build
+
+
+def packs_aligned(k: int, ptr: int) -> bool:
+    """Whether an (M, K) float32 input at address ``ptr`` takes K5's
+    aligned path: rows of whole 32-float words (K % 32 == 0), the data on
+    16 bytes.  Every other input takes the warp-per-word path."""
+    return k % 32 == 0 and ptr % 16 == 0
 
 
 def bitpack(x: torch.Tensor) -> torch.Tensor:
@@ -27,10 +37,11 @@ def bitpack(x: torch.Tensor) -> torch.Tensor:
     """
     dev = _build.cuda_device(x, "x")
     m, k = x.shape
+    px = _build.require(x, "x", torch.float32, (m, k), dev)
     out = torch.empty((m, B.packed_width(k)), dtype=torch.int32, device=dev)
-    lib = _build.load("bitpack", {"bitpack": "ppiip"})
-    err = lib.bitpack(_build.require(x, "x", torch.float32, (m, k), dev),
-                      out.data_ptr(), m, k, _build.stream_of(x))
+    lib = _build.load("bitpack", {"bitpack": "ppiiip"})
+    err = lib.bitpack(px, out.data_ptr(), m, k, int(packs_aligned(k, px)),
+                      _build.stream_of(x))
     _build.check(err, "bitpack")
     bitpack.launches += 1
     return out

@@ -438,3 +438,93 @@ def test_lm_launch_counts_and_parity(dev):
     assert got.shape == logits.shape and torch.isfinite(got).all()
     if flips == 0:
         assert torch.equal(got, logits)
+
+
+# K6 (csrc/dense_stack.cu) as thread-block clusters: M below, at and past a
+# 16- and a 32-row tile, in every tile (R, C) the rule can pick, on stage
+# widths that leave some blocks of a cluster fewer words or none.
+def _stack(gen, sizes, k, dev):
+    stages = []
+    for n in sizes:
+        tau, flip = _bn(gen, n, k, dev)
+        stages.append({"w_packed": B.pack_bits(_pm1(gen, n, k)).to(dev),
+                       "k_true": k, "tau": tau, "flip": flip})
+        k = n
+    return stages
+
+
+def _stack_launch(x, stages):
+    return bmm.binary_dense_stack_packed(
+        x, [s["w_packed"] for s in stages], [s["tau"] for s in stages],
+        [s["flip"] for s in stages], k_trues=[s["k_true"] for s in stages])
+
+
+@pytest.mark.parametrize("m", [1, 15, 16, 17, 33, 65])
+@pytest.mark.parametrize("tile", bmm.STACK_TILES,
+                         ids=[f"R{r}-C{c}" for r, c in bmm.STACK_TILES])
+def test_dense_stack_cluster_edges(dev, monkeypatch, tile, m):
+    gen = torch.Generator().manual_seed(m)
+    stages = _stack(gen, (40, 96, 10), 100, dev)
+    x = B.pack_bits(_pm1(gen, m, 100)).to(dev)
+    monkeypatch.setattr(bmm, "stack_tile", lambda rows, sms: tile)
+    assert torch.equal(_stack_launch(x, stages),
+                       ref.binary_dense_stack_packed_ref(stages, x))
+
+
+def test_dense_stack_sixteen_stages(dev):
+    gen = torch.Generator().manual_seed(16)
+    sizes = (64, 33, 100, 32, 7, 64, 200, 31, 96, 40, 128, 9, 64, 64, 250,
+             10)
+    stages = _stack(gen, sizes, 70, dev)
+    x = B.pack_bits(_pm1(gen, 37, 70)).to(dev)
+    assert torch.equal(_stack_launch(x, stages),
+                       ref.binary_dense_stack_packed_ref(stages, x))
+
+
+@pytest.mark.parametrize("m", [1, 17, 256])
+def test_dense_stack_bcnn_first_stage(dev, m):
+    """The BCNN's stack: a 256-word first stage, 8192 -> 1024 -> 1024."""
+    gen = torch.Generator().manual_seed(8192 + m)
+    stages = _stack(gen, (1024, 1024), 8192, dev)
+    x = B.pack_bits(_pm1(gen, m, 8192)).to(dev)
+    assert torch.equal(_stack_launch(x, stages),
+                       ref.binary_dense_stack_packed_ref(stages, x))
+
+
+def test_dense_stack_refuses_buffers_that_do_not_fit(dev):
+    gen = torch.Generator().manual_seed(577)
+    stages = _stack(gen, (577 * 32,), 32, dev)      # 577-word rows
+    x = B.pack_bits(_pm1(gen, 4, 32)).to(dev)
+    with pytest.raises(ValueError, match="do not fit"):
+        _stack_launch(x, stages)
+
+
+def _edgy(gen, m, k):
+    """Normal floats with -0.0, NaN, +-0 and the tiniest normals sprinkled
+    in, at the first element too."""
+    x = torch.randn((m, k), generator=gen)
+    specials = torch.tensor([-0.0, float("nan"), 0.0, 1.17549435e-38,
+                             -1.17549435e-38, 1e-30, -1e-30])
+    idx = torch.randint(0, m * k, (max(1, m * k // 5),), generator=gen)
+    x.view(-1)[idx] = specials[torch.randint(0, len(specials), idx.shape,
+                                             generator=gen)]
+    x[0, 0] = -0.0
+    return x
+
+
+# K5's aligned path at the LM prefill's four shapes (narrow M) and Table 1's
+# width; a row view 4 bytes off 16 and K = 784 take the general path.
+@pytest.mark.parametrize("m,k", [(9, 3584), (144, 256), (72, 256),
+                                 (9, 4096), (3, 8192)])
+def test_bitpack_aligned_path(dev, m, k):
+    x = _edgy(torch.Generator().manual_seed(m * k), m, k).to(dev)
+    assert bp.packs_aligned(k, x.data_ptr())
+    assert torch.equal(bp.bitpack(x), ref.bitpack_ref(x))
+
+
+@pytest.mark.parametrize("k", [3584, 784])
+def test_bitpack_general_path(dev, k):
+    x = _edgy(torch.Generator().manual_seed(k), 37, k).to(dev)
+    view = _misaligned(x) if k % 32 == 0 else x
+    assert not bp.packs_aligned(k, view.data_ptr())
+    assert torch.equal(bp.bitpack(view), ref.bitpack_ref(view))
