@@ -8,7 +8,7 @@ Phases, each printing its lines:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every CUDA kernel of ``src/repro_torch/csrc``, one ``nvcc``
    per source in parallel, with the ptxas register/shared-memory report
-   (a spill in K1, K3/K7, K4, K5, K6 or K8 fails the run), then the
+   (a spill in K1, K2, K3/K7, K4, K5, K6 or K8 fails the run), then the
    tensor cores' 1-bit, int8 and TF32 ``mma.sync`` peaks
    (``csrc/mma_probe.cu``), which the bounds use;
 3. kernels: each kernel against its plain PyTorch version on the card,
@@ -26,6 +26,10 @@ Phases, each printing its lines:
      on 8192x8192 operands (Table 1) and ``ops.binary_conv2d`` on the
      Table-3 layer (16x16, 128 -> 256 channels, 3x3 SAME) at batch 1
      and 256, against ``torch.matmul`` / ``F.conv2d`` on the ±1 tensors;
+     ``ops.bitplane_conv2d_packed`` then ``ops.bn_sign_pack`` at the
+     BCNN's first stage at batch 1 and 256 (K1's int32 instance and K2,
+     the route of a first stage that pools), against the plain path and
+     against K1's fused instance, which the forward runs there;
    - the packed binary LM at gemma2-9b's full width and depth (42
      layers), weights from seed 0 made and packed on the card: served
      through ``make_packed_forward`` at (B, S) = (1, 16) and (8, 16) and
@@ -85,7 +89,7 @@ MACS_PER_S8_MMA = 16 * 8 * 32
 MACS_PER_TF32_MMA = 16 * 8 * 8
 TF32_PASSES = 3
 # ptxas must report 0 spills
-SPILL_FREE = ("bitplane_conv", "conv_bn_sign", "xnor_gemm",
+SPILL_FREE = ("bitplane_conv", "bn_sign_pack", "conv_bn_sign", "xnor_gemm",
               "binary_attention", "bitpack", "dense_stack")
 
 LM_SERVE = ((1, 16), (8, 16))            # the reference serves max_len 16
@@ -94,10 +98,14 @@ LM_PREFILL = (1, 4608)                   # longer than the 4096 window
 # kernel -> (source, the Pallas body it replaces, the path whose batch-256
 # numbers, or batch-1 for the attention kernel, go into the kernels line)
 SOURCES = {
+    "bitplane_conv_bn_sign": ("src/repro_torch/csrc/bitplane_conv.cu",
+                              "src/repro/kernels/binary_conv.py:277",
+                              "bcnn auto"),
     "bitplane_conv": ("src/repro_torch/csrc/bitplane_conv.cu",
-                      "src/repro/kernels/binary_conv.py:277", "bcnn auto"),
+                      "src/repro/kernels/binary_conv.py:277",
+                      "bitplane_conv2d"),
     "bn_sign_pack": ("src/repro_torch/csrc/bn_sign_pack.cu",
-                     "src/repro/kernels/fused_epilogue.py:96", "bcnn auto"),
+                     "src/repro/kernels/fused_epilogue.py:96", "bmlp auto"),
     "conv_bn_sign": ("src/repro_torch/csrc/conv_bn_sign.cu",
                      "src/repro/kernels/binary_conv.py:257", "bcnn auto"),
     "xnor_gemm": ("src/repro_torch/csrc/xnor_gemm.cu",
@@ -265,8 +273,6 @@ def bcnn_calls(packed, x, dense_stack):
     """Walk the packed BCNN forward stage by stage with the plain versions
     and return every kernel call it makes, in order, on the inputs the
     path gives it."""
-    import torch
-    import torch.nn.functional as F
     from repro_torch.core import binarize as B
     from repro_torch.core import binary_layers as L
     from repro_torch.kernels import binary_conv as bconv
@@ -276,37 +282,16 @@ def bcnn_calls(packed, x, dense_stack):
     bsz = x.shape[0]
     calls = []
 
-    pc = packed["convs"][0]
-    geom = dict(kh=pc["kh"], kw=pc["kw"], stride=pc["stride"],
-                pads=pc["pads"], c_out=pc["c_out"], k_true=pc["k_true"])
-    planes = B.pack_bitplanes_uint8(x, pc["nbits"])
-    oh, ow = pc["out_hw"]
-    out_bytes = bsz * oh * ow * pc["c_out"] * 4
-    xf = x.permute(0, 3, 1, 2).float()
-    (pt, pb), (pl, pr) = pc["pads"]
-    calls.append(Call(
-        "bitplane_conv",
-        functools.partial(bconv.bitplane_conv2d_packed, planes,
-                          pc["w_packed"], pc["rowsum"], out_hw=pc["out_hw"],
-                          nbits=pc["nbits"], **geom),
-        functools.partial(ref.bitplane_conv2d_planes_ref, planes,
-                          pc["w_packed"], pc["rowsum"], nbits=pc["nbits"],
-                          **geom),
-        _nbytes(planes, pc["w_packed"], pc["rowsum"]) + out_bytes,
-        bsz * oh * ow * pc["c_out"] * pc["kh"] * pc["kw"] * pc["cw"]
-        * pc["nbits"],
-        functools.partial(F.conv2d, F.pad(xf, (pl, pr, pt, pb)),
-                          unpacked_conv_weights(pc), stride=pc["stride"]),
-        lambda y: y.permute(0, 2, 3, 1).round().to(torch.int32),
-        macs=bsz * oh * ow * pc["c_out"] * pc["k_true"],
-        bit_macs=bsz * oh * ow * pc["c_out"] * pc["k_true"] * pc["nbits"]))
-    z = calls[-1].plain()
+    pc, fc = packed["convs"][0], packed["folded_conv"][0]
     if spec.stages[0].pool:
-        z = L.maxpool2d(z)
-    z2 = z.reshape(-1, z.shape[-1]).contiguous()
-    fc = packed["folded_conv"][0]
-    calls.append(bn_sign_pack_call(z2, fc))
-    hp = calls[-1].plain().reshape(*z.shape[:-1], -1)
+        calls.append(bitplane_call(pc, x))
+        z = L.maxpool2d(calls[-1].plain())
+        calls.append(bn_sign_pack_call(z.reshape(-1, z.shape[-1])
+                                       .contiguous(), fc))
+        hp = calls[-1].plain().reshape(*z.shape[:-1], -1)
+    else:
+        calls.append(bitplane_call(pc, x, fc))
+        hp = calls[-1].plain()
 
     for i in range(1, len(packed["convs"])):
         pc, fc = packed["convs"][i], packed["folded_conv"][i]
@@ -335,6 +320,69 @@ def bcnn_calls(packed, x, dense_stack):
                                   packed["folded_dense"], dense_stack)
     out = packed["denses"][n - 1]
     return calls + stack + [gemm_call(h, out["w_packed"], out["k_true"])]
+
+
+def bitplane_call(pc, x, folded=None):
+    """K1 on the raw image ``x`` (B, H, W, C_in) uint8 of the plan ``pc``,
+    its planes packed as the path packs them: the int32 instance, or with
+    ``folded`` the fused instance (K2's epilogue inside, packed words
+    out).  Library: ``F.conv2d`` on the zero-padded raw image against the
+    ±1 weights (float32, TF32 off; every sum is an integer below 2^24, so
+    exact); it computes the int32 instance's function and the fused one's
+    contraction only."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import binarize as B
+    from repro_torch.kernels import binary_conv as bconv
+    from repro_torch.kernels import ref
+    bsz = x.shape[0]
+    geom = dict(kh=pc["kh"], kw=pc["kw"], stride=pc["stride"],
+                pads=pc["pads"], c_out=pc["c_out"], k_true=pc["k_true"],
+                nbits=pc["nbits"])
+    planes = B.pack_bitplanes_uint8(x, pc["nbits"])
+    args = (planes, pc["w_packed"], pc["rowsum"])
+    oh, ow = pc["out_hw"]
+    xf = x.permute(0, 3, 1, 2).float()
+    (pt, pb), (pl, pr) = pc["pads"]
+    library = functools.partial(F.conv2d, F.pad(xf, (pl, pr, pt, pb)),
+                                unpacked_conv_weights(pc),
+                                stride=pc["stride"])
+    work = dict(
+        word_ops=bsz * oh * ow * pc["c_out"] * pc["kh"] * pc["kw"]
+        * pc["cw"] * pc["nbits"],
+        macs=bsz * oh * ow * pc["c_out"] * pc["k_true"],
+        bit_macs=bsz * oh * ow * pc["c_out"] * pc["k_true"] * pc["nbits"])
+    if folded is None:
+        return Call(
+            "bitplane_conv",
+            functools.partial(bconv.bitplane_conv2d_packed, *args,
+                              out_hw=pc["out_hw"], **geom),
+            functools.partial(ref.bitplane_conv2d_planes_ref, *args, **geom),
+            _nbytes(*args) + bsz * oh * ow * pc["c_out"] * 4,
+            work["word_ops"], library,
+            lambda y: y.permute(0, 2, 3, 1).round().to(torch.int32),
+            macs=work["macs"], bit_macs=work["bit_macs"])
+    bn = (folded["tau"], folded["flip"])
+    return Call(
+        "bitplane_conv_bn_sign",
+        functools.partial(bconv.bitplane_conv2d_bn_sign_packed, *args, *bn,
+                          out_hw=pc["out_hw"], **geom),
+        lambda: ref.bn_sign_pack_ref(
+            ref.bitplane_conv2d_planes_ref(*args, **geom), *bn),
+        _nbytes(*args, *bn) + bsz * oh * ow * B.packed_width(pc["c_out"]) * 4,
+        work["word_ops"], library, macs=work["macs"],
+        bit_macs=work["bit_macs"])
+
+
+def stage0_calls(packed, x):
+    """The BCNN's first stage on the route of a stage that pools, without
+    the pool: K1's int32 instance, then K2 on its output, at the shapes
+    the fused instance takes on the forward."""
+    pc = packed["convs"][0]
+    calls = [bitplane_call(pc, x)]
+    z = calls[0].plain()
+    return calls + [bn_sign_pack_call(z.reshape(-1, z.shape[-1]),
+                                      packed["folded_conv"][0])]
 
 
 def conv_library(x_pm1, plan):
@@ -1018,13 +1066,21 @@ def ragged_checks(gen, dev) -> list[str]:
         return tau.to(dev), flip.to(dev)
 
     done = []
-    for m, c in ((1, 40), (37, 40), (5, 10)):
+    for m, c in BN_SIGN_RAGGED:
         x = torch.randint(-60, 60, (m, c), generator=gen,
                           dtype=torch.int32).to(dev)
         tau, flip = bn(c, 60)
-        check_equal(f"bn_sign_pack M={m} C={c}", fe.bn_sign_pack(x, tau, flip),
-                    ref.bn_sign_pack_ref(x, tau, flip))
-        done.append(f"bn_sign_pack M={m} C={c}")
+        tau[0] = x[0, 0].float()          # y == tau exactly
+        want = ref.bn_sign_pack_ref(x, tau, flip)
+        for xx in (x, misaligned(x)):     # 4 bytes off: the general path
+            aligned = fe.bn_sign_aligned(c, xx.data_ptr())
+            if aligned != (c % 4 == 0 and xx is x):
+                raise AssertionError(f"bn_sign_pack M={m} C={c}: path rule")
+            check_equal(f"bn_sign_pack M={m} C={c} aligned path {aligned}",
+                        fe.bn_sign_pack(xx, tau, flip), want)
+    done.append(f"bn_sign_pack (M, C) in {BN_SIGN_RAGGED} on the general "
+                f"path, and where C % 4 == 0 on the aligned one, tau[0] == "
+                f"x[0, 0]")
     for m in (1, 37):
         for k in (1, 31, 33, 784, 1000) + BITPACK_ALIGNED:
             x = torch.randn((m, k), generator=gen)
@@ -1167,17 +1223,28 @@ CONV_RAGGED = ((2, (32, 32), 128, 128, 1, "SAME", False),
                (80, (15, 15), 64, 40, 1, "SAME", False),
                (1, (2, 2), 256, 136, 1, "SAME", False),
                (3, (9, 9), 128, 40, 1, "SAME", True))
-# K1 edges: (hw, C_in, C_out, stride, padding, nbits); the last three
+# K1 edges: (hw, C_in, C_out, stride, padding, nbits); the last four
 # exceed a block's shared memory with the full band and 64 channels'
-# weights, and take smaller channel chunks or bands.
+# weights, and take smaller channel chunks or bands: C_in 256 chunks of
+# 32 in both instances; C_in 352 16 channels in 8 rows in the int32
+# instance, 32 in 4 rows in the fused one; the last two fit 32 channels
+# in no band, so the fused instance refuses them.
 BITPLANE_RAGGED = (((9, 9), 33, 40, 2, "SAME", 1),
                    ((11, 7), 33, 10, 2, "VALID", 8),
                    ((9, 9), 3, 40, 2, "SAME", 1),
                    ((13, 5), 3, 136, 2, "VALID", 8),
                    ((7, 7), 33, 72, 1, "SAME", 8),
                    ((32, 32), 256, 64, 1, "SAME", 8),
+                   ((16, 16), 352, 40, 1, "SAME", 8),
                    ((32, 32), 512, 40, 1, "SAME", 8),
                    ((4, 224), 128, 72, 1, "SAME", 8))
+BITPLANE_FUSED_REFUSED = (((32, 32), 512, 40), ((4, 224), 128, 72))
+# K2 edges, (M, C): M 1 and past a tile of 8 rows, word tails (40, 100),
+# two slabs of 128 channels, the second one lane wide (132), C % 4 != 0
+# (10, 33: the general path only), and grids that walk several tiles a
+# warp (M 40000).
+BN_SIGN_RAGGED = ((1, 40), (37, 40), (5, 10), (9, 100), (3, 33),
+                  (37, 132), (40000, 128), (40000, 132))
 
 
 @contextlib.contextmanager
@@ -1213,10 +1280,14 @@ def misaligned(t):
 
 
 def bitplane_check(gen, dev, hw, c_in, c_out, stride, padding, nbits) -> str:
-    """K1 against its plain version on random uint8 input below 2^nbits."""
+    """K1's two instances against their plain versions on random uint8
+    input below 2^nbits, the fused one also against K2 on the int32 one's
+    output; where 32 channels' weights fit no band, the fused one must
+    refuse the shape (BITPLANE_FUSED_REFUSED)."""
     import torch
     from repro_torch.core import binarize as B
     from repro_torch.kernels import binary_conv as bconv
+    from repro_torch.kernels import fused_epilogue as fe
     from repro_torch.kernels import ref
     w = torch.rand((c_out, 3, 3, c_in), generator=gen) * 2 - 1
     bplan = bconv.make_bitplane_conv_plan(w, input_hw=hw, stride=stride,
@@ -1226,13 +1297,32 @@ def bitplane_check(gen, dev, hw, c_in, c_out, stride, padding, nbits) -> str:
     planes = B.pack_bitplanes_uint8(x8, nbits)
     bargs = (planes, bplan["w_packed"].to(dev), bplan["rowsum"].to(dev))
     geom = dict(kh=3, kw=3, stride=stride, pads=bplan["pads"], c_out=c_out,
-                k_true=bplan["k_true"])
+                k_true=bplan["k_true"], nbits=nbits)
     what = (f"bitplane_conv {hw} C_in={c_in} C_out={c_out} s{stride} "
             f"{padding} nbits={nbits}")
-    check_equal(what, bconv.bitplane_conv2d_packed(
-        *bargs, out_hw=bplan["out_hw"], nbits=nbits, **geom),
-        ref.bitplane_conv2d_planes_ref(*bargs, nbits=nbits, **geom))
-    return what
+    y = bconv.bitplane_conv2d_packed(*bargs, out_hw=bplan["out_hw"], **geom)
+    check_equal(what, y, ref.bitplane_conv2d_planes_ref(*bargs, **geom))
+    k = 2 ** nbits * int(bplan["k_true"] ** 0.5) // 2
+    tau = torch.randint(-k, k + 1, (c_out,), generator=gen).float()
+    tau[:2] = y[0, 0, 0, :2].float().cpu()       # y == tau exactly
+    flip = torch.where(torch.rand(c_out, generator=gen) < 0.3, -1.0, 1.0)
+    tau, flip = tau.to(dev), flip.to(dev)
+    fused = functools.partial(bconv.bitplane_conv2d_bn_sign_packed, *bargs,
+                              tau, flip, out_hw=bplan["out_hw"], **geom)
+    if (hw, c_in, c_out) in BITPLANE_FUSED_REFUSED:
+        try:
+            fused()
+        except ValueError:
+            return what + "; the fused instance refuses it"
+        raise AssertionError(f"{what}: the fused instance took a shape "
+                             f"whose 32 channels' weights fit no band")
+    got = fused()
+    check_equal(f"{what} fused", got, ref.bn_sign_pack_ref(
+        ref.bitplane_conv2d_planes_ref(*bargs, **geom), tau, flip))
+    check_equal(f"{what} fused against K2 on the int32 instance", got,
+                fe.bn_sign_pack(y.reshape(-1, c_out), tau, flip)
+                .reshape(got.shape))
+    return what + ", and the fused instance"
 
 
 def randomize_bn(bns, gen) -> None:
@@ -1418,6 +1508,32 @@ def network_path(drv, what, packed, inputs, forward_int, expect):
     return logits
 
 
+def stage0_path(drv, packed, inputs, dev) -> None:
+    """The BCNN's first stage through the layer entry points on the route
+    of a stage that pools (without the pool): ``ops.bitplane_conv2d_packed``
+    (K1's int32 instance), then ``ops.bn_sign_pack`` (K2), at batch 1 and
+    256.  The int32 output against the plain path; the words against the
+    plain path and against ``ops.bitplane_conv2d_bn_sign_packed`` (K1's
+    fused instance, outside the counted run)."""
+    from repro_torch.kernels import ops
+    pc, fc = packed["convs"][0], packed["folded_conv"][0]
+    for b in (1, 256):
+        x = inputs[b].to(dev)
+
+        def run():
+            y = ops.bitplane_conv2d_packed(pc, x)
+            return y, ops.bn_sign_pack(y, fc["tau"], fc["flip"])
+
+        y, words = drv.run(f"bitplane_conv2d + bn_sign_pack B={b}", run,
+                           {"bitplane_conv": 1, "bn_sign_pack": 1})
+        check_equal(f"bitplane_conv2d B={b}", y,
+                    ops.bitplane_conv2d_packed(pc, x, backend="torch"))
+        want = ops.bitplane_conv2d_bn_sign_packed(pc, fc, x, backend="torch")
+        check_equal(f"bn_sign_pack after bitplane_conv2d B={b}", words, want)
+        check_equal(f"bitplane_conv2d_bn_sign_packed B={b} against K2(K1)",
+                    ops.bitplane_conv2d_bn_sign_packed(pc, fc, x), words)
+
+
 def check_float_reference(what, logits, ref_logits) -> None:
     import torch
     for mode in MODES:
@@ -1531,10 +1647,12 @@ def main() -> int:
                     bcnn_calls(bcnn, bcnn_in[8].to(dev), mode))
         check_calls(f"bmlp {mode} B=8",
                     bmlp_calls(bmlp, bmlp_in[8].to(dev), mode))
+    check_calls("bcnn first stage unfused B=8",
+                stage0_calls(bcnn, bcnn_in[8].to(dev)))
     log("kernels: full-width BCNN and BMLP shapes at batch 8 bit-exact in "
-        "both dense-stack modes (BCNN: K1, K2, K3 x5, dense_stack or "
+        "both dense-stack modes (BCNN: K1-fused, K3 x5, dense_stack or "
         "K4-fused x2, K4; BMLP: bitpack, K4, K2, dense_stack or K4-fused "
-        "x2, K4)")
+        "x2, K4), and the BCNN's first stage as K1 and K2")
     check_calls(f"binary_matmul {MATMUL_SIZE}^2", matmul_calls(mm_a, mm_b))
     log(f"kernels: ops.binary_matmul at {MATMUL_SIZE}x{MATMUL_SIZE} "
         f"bit-exact (bitpack on both operands; K4 against the plain version "
@@ -1564,11 +1682,12 @@ def main() -> int:
     # 4. the main paths
     drv = Driver()
     n_conv = len(bspec.stages) - 1
+    stage0 = ({"bitplane_conv": 1, "bn_sign_pack": 1}
+              if bspec.stages[0].pool else {"bitplane_conv_bn_sign": 1})
     bcnn_expect = {
-        "auto": {"bitplane_conv": 1, "bn_sign_pack": 1,
-                 "conv_bn_sign": n_conv, "dense_stack": 1, "xnor_gemm": 1},
-        "per_layer": {"bitplane_conv": 1, "bn_sign_pack": 1,
-                      "conv_bn_sign": n_conv,
+        "auto": {**stage0, "conv_bn_sign": n_conv, "dense_stack": 1,
+                 "xnor_gemm": 1},
+        "per_layer": {**stage0, "conv_bn_sign": n_conv,
                       "xnor_gemm_bn_sign": len(bspec.dense) - 1,
                       "xnor_gemm": 1}}
     bmlp_expect = {
@@ -1596,9 +1715,12 @@ def main() -> int:
                     {"bitpack": 1, "binary_conv": 1})
         check_equal(f"binary_conv2d B={b}", y, ops.binary_conv2d(
             x, conv_w.to(dev), backend="torch"))
+    stage0_path(drv, bcnn, bcnn_in, dev)
     log(f"main path layer entry points: ops.binary_matmul {MATMUL_SIZE}^2 "
         f"(bitpack x2, K4 x1), ops.binary_conv2d Table-3 layer at batch 1 "
-        f"and 256 (bitpack x1, K7 x1), equal to the plain path")
+        f"and 256 (bitpack x1, K7 x1), ops.bitplane_conv2d_packed + "
+        f"ops.bn_sign_pack at the BCNN's first stage at batch 1 and 256 "
+        f"(K1 x1, K2 x1), equal to the plain path and to K1-fused")
     lm_spec, lm = lm_model(dev, gen)
     lm_tokens = lm_path(drv, lm_spec, lm, gen, dev)
     launches = drv.totals
@@ -1621,7 +1743,9 @@ def main() -> int:
                 ("bmlp per_layer", [c for c in bmlp_calls(
                     bmlp, bmlp_in[b].to(dev), "per_layer")
                     if c.name == "xnor_gemm_bn_sign"]),
-                ("binary_conv2d", conv_calls(conv_x[b], conv_w))):
+                ("binary_conv2d", conv_calls(conv_x[b], conv_w)),
+                ("bitplane_conv2d", stage0_calls(bcnn,
+                                                 bcnn_in[b].to(dev)))):
             rows[what, b] = kernel_table(calls, rates, kernel_reps=20,
                                          plain_reps=plain_reps)
             log_table(f"{what} B={b}", rows[what, b])

@@ -218,6 +218,16 @@ def apply_bitplane_conv2d_packed(packed: Params, x_uint8: torch.Tensor, *,
     return kops.bitplane_conv2d_packed(packed, x_uint8, backend=backend)
 
 
+def apply_bitplane_conv2d_bn_packed(packed: Params, folded: Params,
+                                    x_uint8: torch.Tensor, *,
+                                    backend: str = "auto") -> torch.Tensor:
+    """First conv layer on raw uint8 input with the BN-sign threshold and
+    the re-bitpack fused in: (B, H', W', ceil(C_out/32)) words, one kernel
+    launch on the card."""
+    return kops.bitplane_conv2d_bn_sign_packed(packed, folded, x_uint8,
+                                               backend=backend)
+
+
 # ---------------------------------------------------------------------------
 # Batch norm (inference) + sign, and the folded threshold form
 # ---------------------------------------------------------------------------

@@ -11,9 +11,19 @@
 //           the tensor cores, so the plan's rowsum (which turns the plane
 //           popcounts into it) is not needed here.  The wrapper still takes
 //           and checks it, keeping the TPU kernel's operands.
+//           Its fused instance (bitplane_conv_bn_sign) also replaces K2
+//           (src/repro/kernels/fused_epilogue.py:96 _bn_sign_pack_kernel)
+//           where K2 would follow it directly: out (B, OH, OW,
+//           ceil(C_out/32)) words, bit = (f32(y) >= tau) == (flip > 0),
+//           zero-bit tails, bit-identical to K2 on the int32 output
+//           (|y| <= 255 * K < 2^24 here, so f32(y) is exact).
 // Bound on the H100: the int32 output (at the BCNN's stage 0, batch 256,
 //           256*32*32*128*4 = 134 MB, 0.040 ms at 3.35 TB/s).  The
 //           contraction is K = KH*KW*C_in = 27 deep there, one k32 step.
+//           The fused instance writes 1/32 of those bytes (4.2 MB) and
+//           reads the planes (8.4 MB): its bound is a few microseconds,
+//           and the band's decode and the weights' decode per block are
+//           what it pays for.
 // Design:   a block of 4 warps owns a band of R output rows of one image
 //           (R*OW >= 128 pixels) and all C_out channels in chunks of 64.
 //   * Shared memory grows with the band (nbits x rows x W x Cw words and
@@ -37,6 +47,14 @@
 //     MMAs (64 channels).  The 16 x 64 int32 result is staged in shared
 //     memory and written with 16-byte stores along the channel axis (4-byte
 //     stores when C_out % 4 != 0); a band's output rows are contiguous.
+//   * Fused instance (kFused): the chunk's tau and flip are loaded into
+//     shared memory beside its weights.  From the staged tile, per pixel
+//     row and per 32-channel word, lane = channel, bn_sign_ballot packs
+//     the word; lane r * wpc + q keeps word q of row r (wpc = chunk / 32
+//     words a pixel, a compile-time 2 or 1: a loop of ballots with a
+//     run-time count spilled), and the warp stores them at once.  A word
+//     must not span two chunks, so the host takes chunks of 64 or 32
+//     channels only and halves the band before it would go below 32.
 #include "common.cuh"
 
 using namespace repro;
@@ -54,10 +72,11 @@ struct Geometry {
   int B, H, W, Cw, C_in, C_out, KH, KW, stride, pad_top, pad_left, OH, OW,
       nbits;
   int R, rows_b, Wb, K, Kpad, ws_ld, chunk;
-  size_t raw_bytes, stage_bytes, ws_bytes, off_bytes, xs_bytes;
+  size_t raw_bytes, stage_bytes, ws_bytes, off_bytes, xs_bytes, tf_bytes;
 
   __host__ __device__ size_t smem() const {
-    return raw_bytes + stage_bytes + ws_bytes + off_bytes + xs_bytes;
+    return raw_bytes + stage_bytes + ws_bytes + off_bytes + xs_bytes +
+           tf_bytes;
   }
 };
 
@@ -65,7 +84,8 @@ __host__ __device__ inline size_t round16(size_t x) { return (x + 15) & ~15ull; 
 
 Geometry make_geometry(int B, int H, int W, int Cw, int C_in, int C_out,
                        int KH, int KW, int stride, int pad_top, int pad_left,
-                       int OH, int OW, int nbits, int R, int chunk) {
+                       int OH, int OW, int nbits, int R, int chunk,
+                       bool fused) {
   Geometry g{B, H, W, Cw, C_in, C_out, KH, KW, stride, pad_top, pad_left, OH,
              OW, nbits};
   g.R = R;
@@ -80,6 +100,8 @@ Geometry make_geometry(int B, int H, int W, int Cw, int C_in, int C_out,
   g.ws_bytes = round16(static_cast<size_t>(chunk) * g.ws_ld);
   g.off_bytes = round16(static_cast<size_t>(g.Kpad) * 4);
   g.xs_bytes = round16(static_cast<size_t>(g.rows_b) * g.Wb * C_in);
+  // the fused instance's tau and flip of one chunk
+  g.tf_bytes = fused ? 2 * kChunkN * sizeof(float) : 0;
   return g;
 }
 
@@ -106,10 +128,40 @@ __device__ __forceinline__ uint32_t gather4(const uint8_t* xs, int base,
          (static_cast<uint32_t>(xs[base + off[3]]) << 24);
 }
 
+// K1's fused epilogue on one warp's staged 16 x chunk tile: word q of
+// pixel row r (lane = channel 32 q + lane of the chunk) by one ballot;
+// lane r * kWpc + q keeps it and stores it.  kWpc = chunk / 32.
+template <int kWpc>
+__device__ __forceinline__ void store_words(const int32_t* st,
+                                            const float* tau_s,
+                                            const float* flip_s,
+                                            uint32_t* out, long long px0,
+                                            int rows, int n0, int cn,
+                                            int C_out, int lane) {
+  uint32_t mine = 0;
+#pragma unroll
+  for (int i = 0; i < 16 * kWpc; ++i) {
+    const int ch = (i % kWpc) * 32 + lane;
+    const uint32_t bits =
+        bn_sign_ballot(st[(i / kWpc) * kStageLd + ch], n0 + ch < C_out,
+                       tau_s, flip_s, ch);
+    mine = lane == i ? bits : mine;
+  }
+  const int r = lane / kWpc;
+  const int q = lane % kWpc;
+  if (r < rows && q * 32 < cn)
+    out[(px0 + r) * ((C_out + 31) / 32) + n0 / 32 + q] = mine;
+}
+
+// kFused: out is (B, OH, OW, ceil(C_out/32)) words of the BN-sign
+// epilogue on tau/flip; else (B, OH, OW, C_out) int32 and tau/flip unused.
+template <bool kFused>
 __global__ void __launch_bounds__(kThreads)
     bitplane_conv_kernel(const uint32_t* __restrict__ planes,
                          const uint32_t* __restrict__ w,
-                         int32_t* __restrict__ out, Geometry G) {
+                         const float* __restrict__ tau,
+                         const float* __restrict__ flip,
+                         void* __restrict__ out_, Geometry G) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint32_t* raw = reinterpret_cast<uint32_t*>(smem);
   int32_t* stage = reinterpret_cast<int32_t*>(smem + G.raw_bytes);
@@ -119,6 +171,10 @@ __global__ void __launch_bounds__(kThreads)
   uint8_t* xs = reinterpret_cast<uint8_t*>(smem + G.raw_bytes +
                                            G.stage_bytes + G.ws_bytes +
                                            G.off_bytes);
+  float* tau_s = reinterpret_cast<float*>(smem + G.raw_bytes + G.stage_bytes +
+                                          G.ws_bytes + G.off_bytes +
+                                          G.xs_bytes);
+  float* flip_s = tau_s + kChunkN;
   const int tid = threadIdx.x;
   const int lane = lane_id();
   const int warp = tid / kWarp;
@@ -215,6 +271,13 @@ __global__ void __launch_bounds__(kThreads)
         for (int c = 0; c < G.C_in; ++c) dst[c] = 0;
       }
     }
+    if constexpr (kFused) {
+      for (int i = tid; i < G.chunk; i += kThreads) {
+        const bool in = n0 + i < G.C_out;
+        tau_s[i] = in ? tau[n0 + i] : 0.f;
+        flip_s[i] = in ? flip[n0 + i] : 1.f;
+      }
+    }
     __syncthreads();
     const int cn = min(G.chunk, G.C_out - n0);
     const int ntiles = (cn + 7) / 8;
@@ -261,22 +324,34 @@ __global__ void __launch_bounds__(kThreads)
       }
       __syncwarp();
       const int p0 = mt * 16;
-      if (G.C_out % 4 == 0) {
-        for (int i = lane; i < 16 * (kChunkN / 4); i += kWarp) {
-          const int r = i / (kChunkN / 4);
-          const int q = i % (kChunkN / 4);
-          if (p0 + r < P && q * 4 < cn)
-            *reinterpret_cast<int4*>(out + (out_px0 + p0 + r) * G.C_out +
-                                     n0 + q * 4) =
-                *reinterpret_cast<const int4*>(st + r * kStageLd + q * 4);
-        }
+      if constexpr (kFused) {
+        uint32_t* out = static_cast<uint32_t*>(out_);
+        const int rows = min(16, P - p0);
+        if (G.chunk == 64)
+          store_words<2>(st, tau_s, flip_s, out, out_px0 + p0, rows, n0, cn,
+                         G.C_out, lane);
+        else
+          store_words<1>(st, tau_s, flip_s, out, out_px0 + p0, rows, n0, cn,
+                         G.C_out, lane);
       } else {
-        for (int i = lane; i < 16 * kChunkN; i += kWarp) {
-          const int r = i / kChunkN;
-          const int ch = i % kChunkN;
-          if (p0 + r < P && ch < cn)
-            out[(out_px0 + p0 + r) * G.C_out + n0 + ch] =
-                st[r * kStageLd + ch];
+        int32_t* out = static_cast<int32_t*>(out_);
+        if (G.C_out % 4 == 0) {
+          for (int i = lane; i < 16 * (kChunkN / 4); i += kWarp) {
+            const int r = i / (kChunkN / 4);
+            const int q = i % (kChunkN / 4);
+            if (p0 + r < P && q * 4 < cn)
+              *reinterpret_cast<int4*>(out + (out_px0 + p0 + r) * G.C_out +
+                                       n0 + q * 4) =
+                  *reinterpret_cast<const int4*>(st + r * kStageLd + q * 4);
+          }
+        } else {
+          for (int i = lane; i < 16 * kChunkN; i += kWarp) {
+            const int r = i / kChunkN;
+            const int ch = i % kChunkN;
+            if (p0 + r < P && ch < cn)
+              out[(out_px0 + p0 + r) * G.C_out + n0 + ch] =
+                  st[r * kStageLd + ch];
+          }
         }
       }
       __syncwarp();
@@ -284,13 +359,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-}  // namespace
-
-extern "C" int bitplane_conv(const void* planes, const void* w, void* out,
-                             int B, int H, int W, int Cw, int C_in, int C_out,
-                             int KH, int KW, int stride, int pad_top,
-                             int pad_left, int OH, int OW, int nbits,
-                             void* stream) {
+// The geometry search and the launch of either instance.  The int32
+// instance takes the largest chunk of 64, 32, 16 or 8 channels, then the
+// largest band, that fits the limit; the fused one chunks of 64 or 32
+// only, so that no 32-channel word spans two chunks.
+template <bool kFused>
+int launch(const void* planes, const void* w, const void* tau,
+           const void* flip, void* out, int B, int H, int W, int Cw,
+           int C_in, int C_out, int KH, int KW, int stride, int pad_top,
+           int pad_left, int OH, int OW, int nbits, void* stream) {
   if (B <= 0 || OH <= 0 || OW <= 0 || C_out <= 0)
     return static_cast<int>(cudaGetLastError());
   if (nbits < 1 || nbits > 8 || C_in < 1 || C_in > 32 * Cw)
@@ -301,29 +378,55 @@ extern "C" int bitplane_conv(const void* planes, const void* w, void* out,
     e = cudaDeviceGetAttribute(
         &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
-  // the largest chunk, then the largest band, that fits the limit
+  const int min_chunk = kFused ? 32 : 8;
   Geometry g{};
   bool fits = false;
   const int r_full = (kMinBandPixels + OW - 1) / OW;
   for (int R = r_full < OH ? r_full : OH; R >= 1 && !fits;
        R = R > 1 ? R / 2 : 0)
-    for (int chunk = kChunkN; chunk >= 8 && !fits; chunk /= 2) {
+    for (int chunk = kChunkN; chunk >= min_chunk && !fits; chunk /= 2) {
       g = make_geometry(B, H, W, Cw, C_in, C_out, KH, KW, stride, pad_top,
-                        pad_left, OH, OW, nbits, R, chunk);
+                        pad_left, OH, OW, nbits, R, chunk, kFused);
       fits = g.smem() <= static_cast<size_t>(limit);
     }
   if (!fits) return kTooLarge;
   const size_t smem = g.smem();
   if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(bitplane_conv_kernel,
+    e = cudaFuncSetAttribute(bitplane_conv_kernel<kFused>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid((OH + g.R - 1) / g.R, B);
-  bitplane_conv_kernel<<<grid, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
+  bitplane_conv_kernel<kFused><<<grid, kThreads, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(planes), static_cast<const uint32_t*>(w),
-      static_cast<int32_t*>(out), g);
+      static_cast<const float*>(tau), static_cast<const float*>(flip), out,
+      g);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int bitplane_conv(const void* planes, const void* w, void* out,
+                             int B, int H, int W, int Cw, int C_in, int C_out,
+                             int KH, int KW, int stride, int pad_top,
+                             int pad_left, int OH, int OW, int nbits,
+                             void* stream) {
+  return launch<false>(planes, w, nullptr, nullptr, out, B, H, W, Cw, C_in,
+                       C_out, KH, KW, stride, pad_top, pad_left, OH, OW,
+                       nbits, stream);
+}
+
+// The fused instance: out (B, OH, OW, ceil(C_out/32)) words.
+extern "C" int bitplane_conv_bn_sign(const void* planes, const void* w,
+                                     const void* tau, const void* flip,
+                                     void* out, int B, int H, int W, int Cw,
+                                     int C_in, int C_out, int KH, int KW,
+                                     int stride, int pad_top, int pad_left,
+                                     int OH, int OW, int nbits,
+                                     void* stream) {
+  return launch<true>(planes, w, tau, flip, out, B, H, W, Cw, C_in, C_out,
+                      KH, KW, stride, pad_top, pad_left, OH, OW, nbits,
+                      stream);
 }

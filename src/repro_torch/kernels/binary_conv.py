@@ -5,13 +5,15 @@
   correction (C5) or the bit-plane rowsum (C4).  Plans are built on the
   CPU in exact integer arithmetic and moved to the device afterwards.
 * :func:`bitplane_conv2d_packed` (K1, ``csrc/bitplane_conv.cu``) is the
-  first-layer conv over packed bit planes; :func:`binary_conv2d_bn_sign_packed`
+  first-layer conv over packed bit planes, and
+  :func:`bitplane_conv2d_bn_sign_packed` the same kernel with K2's BN-sign
+  epilogue fused in (packed words out); :func:`binary_conv2d_bn_sign_packed`
   (K3, ``csrc/conv_bn_sign.cu``) is the packed conv with the C5
   correction and the fused BN-sign repack, and :func:`binary_conv2d_packed`
   (K7, the same source with the epilogue switched off) the packed conv
   with an int32 output; both run it as an implicit GEMM on the 1-bit
   tensor cores, K4's main loop (``csrc/b1_mma.cuh``), in the tiles
-  :func:`conv_tile` picks.  All three do their im2col inside the kernel;
+  :func:`conv_tile` picks.  All of them do their im2col inside the kernel;
   padded taps read the word 0, i.e. all -1.
 
 Each wrapper launches its kernel and takes CUDA tensors only;
@@ -30,8 +32,10 @@ from repro_torch.kernels import binary_matmul as _bmm
 # csrc/conv_bn_sign.cu: K3 (fused epilogue) and K7 (int32 epilogue)
 _CONV_ENTRIES = {"conv_bn_sign": "pppppp" + "i" * 15 + "p",
                  "binary_conv": "pppp" + "i" * 15 + "p"}
-# csrc/bitplane_conv.cu's kTooLarge: no band and channel chunk of K1 fit
-# one block's shared memory
+# csrc/bitplane_conv.cu: its two C entry points, and kTooLarge: no band
+# and channel chunk of K1 fit one block's shared memory
+_BITPLANE_ENTRIES = {"bitplane_conv": "ppp" + "i" * 14 + "p",
+                     "bitplane_conv_bn_sign": "ppppp" + "i" * 14 + "p"}
 BITPLANE_TOO_LARGE = -1
 # K3/K7's output tiles (csrc/conv_bn_sign.cu), (pixels, channels), chosen
 # by shape (:func:`conv_tile`).
@@ -128,6 +132,41 @@ def _check_geometry(h: int, w: int, kh: int, kw: int, stride: int, pads,
                          f"pads {pads}: expected {want}")
 
 
+def _bitplane_operands(x_planes, w_packed, rowsum, *, kh, kw, stride, pads,
+                       out_hw, c_out, k_true, nbits):
+    """Check the operands K1's two instances share; returns the launch's
+    device and the pointers and sizes that lead their C entry points'
+    arguments, and those that end them."""
+    dev = _build.cuda_device(x_planes, "x_planes")
+    nb, bsz, h, w, cw = x_planes.shape
+    if nb != nbits or not 1 <= nbits <= 8:
+        raise ValueError(f"x_planes holds {nb} planes, plan says {nbits} "
+                         f"(the kernel takes 1 to 8)")
+    c_in, rem = divmod(k_true, kh * kw)
+    if rem or not 32 * (cw - 1) < c_in <= 32 * cw:
+        raise ValueError(f"k_true {k_true} is not KH*KW*C_in for a C_in "
+                         f"packed into {cw} words")
+    _check_geometry(h, w, kh, kw, stride, pads, out_hw)
+    _build.require(rowsum, "rowsum", torch.int32, (c_out,), dev)
+    ptrs = (_build.require(x_planes, "x_planes", torch.int32,
+                           x_planes.shape, dev),
+            _build.require(w_packed, "w_packed", torch.int32,
+                           (c_out, kh * kw * cw), dev))
+    sizes = (bsz, h, w, cw, c_in, c_out, kh, kw, stride, pads[0][0],
+             pads[1][0], *out_hw, nbits, _build.stream_of(x_planes))
+    return dev, ptrs, sizes
+
+
+def _bitplane_check(err: int, what: str, *, kh, w, c_in, nbits, k_true,
+                    chunk) -> None:
+    if err == BITPLANE_TOO_LARGE:
+        raise ValueError(
+            f"{what}: one output row's band ({kh} input rows of W={w} at "
+            f"C_in={c_in}, {nbits} planes) and {chunk} channels' weights of "
+            f"depth {k_true} exceed a block's shared memory")
+    _build.check(err, what)
+
+
 def bitplane_conv2d_packed(x_planes: torch.Tensor, w_packed: torch.Tensor,
                            rowsum: torch.Tensor, *, kh: int, kw: int,
                            stride: int, pads, out_hw: tuple[int, int],
@@ -145,39 +184,60 @@ def bitplane_conv2d_packed(x_planes: torch.Tensor, w_packed: torch.Tensor,
     rows and 8 channels' weights exceed one block's shared memory.  Adds
     one to ``bitplane_conv2d_packed.launches`` per kernel launch.
     """
-    dev = _build.cuda_device(x_planes, "x_planes")
-    nb, bsz, h, w, cw = x_planes.shape
-    if nb != nbits or not 1 <= nbits <= 8:
-        raise ValueError(f"x_planes holds {nb} planes, plan says {nbits} "
-                         f"(the kernel takes 1 to 8)")
-    c_in, rem = divmod(k_true, kh * kw)
-    if rem or not 32 * (cw - 1) < c_in <= 32 * cw:
-        raise ValueError(f"k_true {k_true} is not KH*KW*C_in for a C_in "
-                         f"packed into {cw} words")
-    _check_geometry(h, w, kh, kw, stride, pads, out_hw)
-    _build.require(rowsum, "rowsum", torch.int32, (c_out,), dev)
-    oh, ow = out_hw
-    out = torch.empty((bsz, oh, ow, c_out), dtype=torch.int32, device=dev)
-    lib = _build.load("bitplane_conv", {"bitplane_conv": "ppp" + "i" * 14
-                                        + "p"})
-    err = lib.bitplane_conv(
-        _build.require(x_planes, "x_planes", torch.int32,
-                       x_planes.shape, dev),
-        _build.require(w_packed, "w_packed", torch.int32,
-                       (c_out, kh * kw * cw), dev),
-        out.data_ptr(), bsz, h, w, cw, c_in, c_out, kh, kw, stride,
-        pads[0][0], pads[1][0], oh, ow, nbits, _build.stream_of(x_planes))
-    if err == BITPLANE_TOO_LARGE:
-        raise ValueError(
-            f"bitplane_conv: one output row's band ({kh} input rows of "
-            f"W={w} at C_in={c_in}, {nbits} planes) and 8 channels' weights "
-            f"of depth {k_true} exceed a block's shared memory")
-    _build.check(err, "bitplane_conv")
+    dev, ptrs, sizes = _bitplane_operands(
+        x_planes, w_packed, rowsum, kh=kh, kw=kw, stride=stride, pads=pads,
+        out_hw=out_hw, c_out=c_out, k_true=k_true, nbits=nbits)
+    out = torch.empty((x_planes.shape[1], *out_hw, c_out),
+                      dtype=torch.int32, device=dev)
+    lib = _build.load("bitplane_conv", _BITPLANE_ENTRIES)
+    err = lib.bitplane_conv(*ptrs, out.data_ptr(), *sizes)
+    _bitplane_check(err, "bitplane_conv", kh=kh, w=x_planes.shape[3],
+                    c_in=sizes[4], nbits=nbits, k_true=k_true, chunk=8)
     bitplane_conv2d_packed.launches += 1
     return out
 
 
 bitplane_conv2d_packed.launches = 0
+
+
+def bitplane_conv2d_bn_sign_packed(x_planes: torch.Tensor,
+                                   w_packed: torch.Tensor,
+                                   rowsum: torch.Tensor, tau: torch.Tensor,
+                                   flip: torch.Tensor, *, kh: int, kw: int,
+                                   stride: int, pads,
+                                   out_hw: tuple[int, int], c_out: int,
+                                   k_true: int, nbits: int) -> torch.Tensor:
+    """K1 with K2's epilogue fused in: the first-layer conv, BN-sign fold
+    and re-bitpack in one launch (``csrc/bitplane_conv.cu``'s fused
+    instance).
+
+    Operands as :func:`bitplane_conv2d_packed`, plus ``tau``/``flip``:
+    (C_out,) f32.  Returns (B, OH, OW, ceil(C_out/32)) words,
+    bit-identical to ``bn_sign_pack`` of :func:`bitplane_conv2d_packed`'s
+    output.  The kernel takes channel chunks of 64 or 32 only (a word
+    never spans two), so it raises ``ValueError`` for an input whose band
+    of rows and 32 channels' weights exceed one block's shared memory;
+    nothing reroutes.  Adds one to
+    ``bitplane_conv2d_bn_sign_packed.launches`` per kernel launch.
+    """
+    dev, ptrs, sizes = _bitplane_operands(
+        x_planes, w_packed, rowsum, kh=kh, kw=kw, stride=stride, pads=pads,
+        out_hw=out_hw, c_out=c_out, k_true=k_true, nbits=nbits)
+    out = torch.empty((x_planes.shape[1], *out_hw, B.packed_width(c_out)),
+                      dtype=torch.int32, device=dev)
+    lib = _build.load("bitplane_conv", _BITPLANE_ENTRIES)
+    err = lib.bitplane_conv_bn_sign(
+        *ptrs, _build.require(tau, "tau", torch.float32, (c_out,), dev),
+        _build.require(flip, "flip", torch.float32, (c_out,), dev),
+        out.data_ptr(), *sizes)
+    _bitplane_check(err, "bitplane_conv_bn_sign", kh=kh,
+                    w=x_planes.shape[3], c_in=sizes[4], nbits=nbits,
+                    k_true=k_true, chunk=32)
+    bitplane_conv2d_bn_sign_packed.launches += 1
+    return out
+
+
+bitplane_conv2d_bn_sign_packed.launches = 0
 
 
 def conv_tile(m: int, n: int, sms: int) -> int:

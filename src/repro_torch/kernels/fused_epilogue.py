@@ -3,8 +3,16 @@
 Between binary layers the inference path turns an int32 layer output
 into the next layer's packed words: sign(BN(y)) == flip * sign(y - tau)
 (``core.binary_layers.fold_bn_sign``), so one compare per element and a
-pack.  :func:`bn_sign_pack` runs it as one kernel after the bit-plane
-first layer; the conv and GEMM kernels inline the same epilogue.
+pack.  :func:`bn_sign_pack` runs it as one kernel (K2) after the BMLP's
+bit-plane first layer and after the BCNN's first stage where that stage
+pools; K1's fused instance
+(``binary_conv.bitplane_conv2d_bn_sign_packed``), the conv kernels and
+the GEMM kernels inline the same epilogue.
+
+K2 has two paths (``csrc/bn_sign_pack.cu``), chosen by shape and
+alignment (:func:`bn_sign_aligned`): rows of whole 4-channel groups on 16
+bytes take 16-byte loads, 8 rows in flight a lane, with tau and flip
+kept in registers; any other input one warp per output word.
 """
 from __future__ import annotations
 
@@ -12,6 +20,7 @@ import torch
 
 from repro_torch.core import binarize as B
 from repro_torch.kernels import _build
+from repro_torch.kernels import binary_matmul as _bmm
 
 
 def bn_sign_bits_to_words(y: torch.Tensor, tau: torch.Tensor,
@@ -28,24 +37,34 @@ def bn_sign_bits_to_words(y: torch.Tensor, tau: torch.Tensor,
     return B.pack_bool_bits(ge == (flip > 0))
 
 
+def bn_sign_aligned(c: int, ptr: int) -> bool:
+    """Whether an (M, C) int32 input at address ``ptr`` takes K2's aligned
+    path: rows of whole 4-channel groups (C % 4 == 0), the data on 16
+    bytes, so every row starts on 16 bytes.  Every other input takes the
+    warp-per-word path."""
+    return c % 4 == 0 and ptr % 16 == 0
+
+
 def bn_sign_pack(x: torch.Tensor, tau: torch.Tensor,
                  flip: torch.Tensor) -> torch.Tensor:
     """K2: fused sign(BN(x)) + bit-pack, (M, C) int32 -> (M, ceil(C/32))
     int32 words.
 
-    Launches ``csrc/bn_sign_pack.cu`` on CUDA tensors and adds one to
+    Launches ``csrc/bn_sign_pack.cu`` on CUDA tensors, on the path
+    :func:`bn_sign_aligned` picks, and adds one to
     ``bn_sign_pack.launches``; its plain version is
     :func:`bn_sign_bits_to_words`.
     """
     m, c = x.shape
     dev = _build.cuda_device(x, "x")
+    px = _build.require(x, "x", torch.int32, (m, c), dev)
     out = torch.empty((m, B.packed_width(c)), dtype=torch.int32, device=dev)
-    lib = _build.load("bn_sign_pack", {"bn_sign_pack": "ppppiip"})
+    lib = _build.load("bn_sign_pack", {"bn_sign_pack": "ppppiiiip"})
     err = lib.bn_sign_pack(
-        _build.require(x, "x", torch.int32, (m, c), dev),
-        _build.require(tau, "tau", torch.float32, (c,), dev),
+        px, _build.require(tau, "tau", torch.float32, (c,), dev),
         _build.require(flip, "flip", torch.float32, (c,), dev),
-        out.data_ptr(), m, c, _build.stream_of(x))
+        out.data_ptr(), m, c, int(bn_sign_aligned(c, px)),
+        _bmm.sm_count(dev), _build.stream_of(x))
     _build.check(err, "bn_sign_pack")
     bn_sign_pack.launches += 1
     return out

@@ -31,6 +31,7 @@ KERNELS = {
     "binary_conv": _bconv.binary_conv2d_packed,
     "bitpack": _bp.bitpack,
     "bitplane_conv": _bconv.bitplane_conv2d_packed,
+    "bitplane_conv_bn_sign": _bconv.bitplane_conv2d_bn_sign_packed,
     "bn_sign_pack": _fe.bn_sign_pack,
     "conv_bn_sign": _bconv.binary_conv2d_bn_sign_packed,
     "dense_stack": _bmm.binary_dense_stack_packed,
@@ -242,15 +243,17 @@ def binary_conv2d_bn_sign_packed(plan: dict, folded: dict,
         **_conv_geom(plan))
 
 
+def _bitplane_geom(plan: dict) -> dict:
+    return dict(_conv_geom(plan), nbits=plan["nbits"])
+
+
 def bitplane_conv2d_packed(plan: dict, x_uint8: torch.Tensor, *,
                            backend: str = "auto") -> torch.Tensor:
     """First-layer fixed-precision conv (paper C4) on a
     ``make_bitplane_conv_plan`` plan: raw (B, H, W, C_in) uint8 ->
     (B, OH, OW, C_out) int32.  The bit planes are packed with plain tensor
     ops and the conv is one kernel launch."""
-    geom = dict(kh=plan["kh"], kw=plan["kw"], stride=plan["stride"],
-                pads=plan["pads"], c_out=plan["c_out"],
-                k_true=plan["k_true"], nbits=plan["nbits"])
+    geom = _bitplane_geom(plan)
     if _resolve(backend, x_uint8) == "torch":
         return _ref.bitplane_conv2d_packed_ref(
             x_uint8, plan["w_packed"], plan["rowsum"], **geom)
@@ -258,3 +261,23 @@ def bitplane_conv2d_packed(plan: dict, x_uint8: torch.Tensor, *,
     return _bconv.bitplane_conv2d_packed(
         x_planes, plan["w_packed"], plan["rowsum"], out_hw=plan["out_hw"],
         **geom)
+
+
+def bitplane_conv2d_bn_sign_packed(plan: dict, folded: dict,
+                                   x_uint8: torch.Tensor, *,
+                                   backend: str = "auto") -> torch.Tensor:
+    """First-layer conv + BN-sign fold + re-bitpack on a
+    ``make_bitplane_conv_plan`` plan and a folded BN (``tau``, ``flip``):
+    raw (B, H, W, C_in) uint8 -> (B, OH, OW, ceil(C_out/32)) words,
+    bit-identical to :func:`bn_sign_pack` of
+    :func:`bitplane_conv2d_packed`.  The bit planes are packed with plain
+    tensor ops and the conv with its epilogue is one kernel launch."""
+    geom = _bitplane_geom(plan)
+    if _resolve(backend, x_uint8) == "torch":
+        return _ref.bitplane_conv2d_bn_sign_packed_ref(
+            x_uint8, plan["w_packed"], plan["rowsum"], folded["tau"],
+            folded["flip"], **geom)
+    x_planes = B.pack_bitplanes_uint8(x_uint8, plan["nbits"])
+    return _bconv.bitplane_conv2d_bn_sign_packed(
+        x_planes, plan["w_packed"], plan["rowsum"], folded["tau"],
+        folded["flip"], out_hw=plan["out_hw"], **geom)

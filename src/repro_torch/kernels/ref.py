@@ -138,6 +138,21 @@ def bitplane_conv2d_packed_ref(x_uint8: torch.Tensor, w_packed: torch.Tensor,
         nbits=nbits)
 
 
+def bitplane_conv2d_bn_sign_packed_ref(x_uint8: torch.Tensor,
+                                      w_packed: torch.Tensor,
+                                      rowsum: torch.Tensor,
+                                      tau: torch.Tensor, flip: torch.Tensor,
+                                      *, kh: int, kw: int, stride: int, pads,
+                                      c_out: int, k_true: int,
+                                      nbits: int) -> torch.Tensor:
+    """First-layer conv on raw uint8 input, then BN-sign + re-bitpack
+    along C_out: (B, OH, OW, ceil(C_out/32)) words."""
+    y = bitplane_conv2d_packed_ref(x_uint8, w_packed, rowsum, kh=kh, kw=kw,
+                                   stride=stride, pads=pads, c_out=c_out,
+                                   k_true=k_true, nbits=nbits)
+    return bn_sign_pack_ref(y, tau, flip)
+
+
 def binary_conv2d_bn_sign_packed_ref(x_packed: torch.Tensor,
                                      w_packed: torch.Tensor,
                                      correction: torch.Tensor,

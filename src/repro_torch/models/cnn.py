@@ -281,19 +281,24 @@ def bcnn_forward_packed_int(packed: dict, x_uint8: torch.Tensor, *,
                             dense_stack: str = "auto") -> torch.Tensor:
     """The packed forward up to the output layer's int32 pre-BN values.
 
-    Stage 0 is the bit-plane conv (K1), an int32 pool when the stage
-    pools, and the standalone BN-sign pack (K2).  Stages 1.. are fused
-    conv + BN-sign + repack (K3) with bit-domain pooling.  The hidden
-    dense layers are the dense stack (K6, or K4-fused per layer) and the
-    output layer is the int32 GEMM (K4).
+    Stage 0 is the bit-plane conv with the BN-sign pack fused in (K1's
+    fused instance) where the stage does not pool, as ``BCNNSpec()``'s
+    does; where it pools, the bit-plane conv (K1), the int32 pool and the
+    standalone BN-sign pack (K2), in the reference's order.  Stages 1..
+    are fused conv + BN-sign + repack (K3) with bit-domain pooling.  The
+    hidden dense layers are the dense stack (K6, or K4-fused per layer)
+    and the output layer is the int32 GEMM (K4).
     """
     spec: BCNNSpec = packed["spec"]
-    z = L.apply_bitplane_conv2d_packed(packed["convs"][0], x_uint8,
-                                       backend=backend)
     if spec.stages[0].pool:
-        z = L.maxpool2d(z)
-    hp = L.apply_bn_sign_folded_packed(packed["folded_conv"][0], z,
-                                       backend=backend)
+        z = L.apply_bitplane_conv2d_packed(packed["convs"][0], x_uint8,
+                                           backend=backend)
+        hp = L.apply_bn_sign_folded_packed(packed["folded_conv"][0],
+                                           L.maxpool2d(z), backend=backend)
+    else:
+        hp = L.apply_bitplane_conv2d_bn_packed(
+            packed["convs"][0], packed["folded_conv"][0], x_uint8,
+            backend=backend)
     for i in range(1, len(packed["convs"])):
         hp = L.apply_binary_conv2d_bn_packed(packed["convs"][i],
                                              packed["folded_conv"][i], hp,

@@ -51,6 +51,28 @@ def test_bn_sign_pack_kernel(dev, m, c):
                        ref.bn_sign_pack_ref(x, tau, flip))
 
 
+# K2's two paths on the same rows: the aligned path (C % 4 == 0, x on 16
+# bytes) and, 4 bytes off 16-byte alignment, the warp-per-word path.  M
+# below and past a tile of 8 rows; a word tail (C 40, 100); two slabs of
+# 128 channels, the second one lane wide (C 132); the BMLP's (256, 4096);
+# grids that walk several tiles a warp (M 40000).  Channel 0's tau equals
+# row 0's value.
+@pytest.mark.parametrize("m,c", [(1, 4), (37, 40), (3, 132), (9, 100),
+                                 (256, 4096), (40000, 128), (40000, 132)])
+def test_bn_sign_pack_both_paths(dev, m, c):
+    gen = torch.Generator().manual_seed(3 * m + c)
+    x = torch.randint(-99, 99, (m, c), generator=gen,
+                      dtype=torch.int32).to(dev)
+    tau, flip = _bn(gen, c, 99, dev)
+    tau[0] = x[0, 0].float()
+    want = ref.bn_sign_pack_ref(x, tau, flip)
+    assert fe.bn_sign_aligned(c, x.data_ptr())
+    assert torch.equal(fe.bn_sign_pack(x, tau, flip), want)
+    xm = _misaligned(x)
+    assert not fe.bn_sign_aligned(c, xm.data_ptr())
+    assert torch.equal(fe.bn_sign_pack(xm, tau, flip), want)
+
+
 @pytest.mark.parametrize("m,n,k", [(1, 10, 1024), (3, 40, 70),
                                    (256, 1024, 8192)])
 def test_xnor_gemm_kernels(dev, m, n, k):
@@ -123,6 +145,59 @@ def test_bitplane_conv_kernel_edges(dev, hw, c_in, c_out, stride, padding,
         bconv.bitplane_conv2d_packed(*bargs, out_hw=bplan["out_hw"],
                                      nbits=nbits, **geom),
         ref.bitplane_conv2d_planes_ref(*bargs, nbits=nbits, **geom))
+
+
+# K1's fused instance (K2's epilogue inside K1) against its plain version
+# and against K2 on K1's int32 output: chunks of 64 channels (the BCNN's
+# first stage; C_out 40, 10, 136, 72 and 33 with tail words; stride 2;
+# VALID; 1 and 4 planes) and of 32 (C_in 256), and a band halved to keep
+# chunks of 32 (C_in 352: the int32 instance takes 8 rows of 16 channels,
+# the fused one 4 rows of 32).  Four channels' tau equal one output.
+@pytest.mark.parametrize("hw,c_in,c_out,stride,padding,nbits", [
+    ((32, 32), 3, 128, 1, "SAME", 8), ((9, 9), 33, 40, 2, "SAME", 1),
+    ((11, 7), 33, 10, 2, "VALID", 8), ((13, 5), 3, 136, 2, "VALID", 8),
+    ((7, 7), 33, 72, 1, "SAME", 4), ((9, 9), 3, 33, 1, "SAME", 8),
+    ((32, 32), 256, 64, 1, "SAME", 8), ((16, 16), 352, 40, 1, "SAME", 8)])
+def test_bitplane_conv_bn_sign_kernel(dev, hw, c_in, c_out, stride, padding,
+                                      nbits):
+    gen = torch.Generator().manual_seed(c_in * c_out + nbits + stride)
+    bplan = bconv.make_bitplane_conv_plan(
+        _pm1(gen, c_out, 3, 3, c_in), input_hw=hw, stride=stride,
+        padding=padding, nbits=nbits)
+    planes = B.pack_bitplanes_uint8(torch.randint(
+        0, 2 ** nbits, (3, *hw, c_in), generator=gen,
+        dtype=torch.uint8).to(dev), nbits)
+    bargs = (planes, bplan["w_packed"].to(dev), bplan["rowsum"].to(dev))
+    geom = dict(kh=3, kw=3, stride=stride, pads=bplan["pads"], c_out=c_out,
+                k_true=bplan["k_true"], nbits=nbits)
+    y = bconv.bitplane_conv2d_packed(*bargs, out_hw=bplan["out_hw"], **geom)
+    tau, flip = _bn(gen, c_out, 2 ** nbits * int(bplan["k_true"] ** 0.5),
+                    dev)
+    tau[:4] = y[0, 0, 0, :4].float()
+    got = bconv.bitplane_conv2d_bn_sign_packed(
+        *bargs, tau, flip, out_hw=bplan["out_hw"], **geom)
+    assert torch.equal(got, ref.bn_sign_pack_ref(
+        ref.bitplane_conv2d_planes_ref(*bargs, **geom), tau, flip))
+    assert torch.equal(got, fe.bn_sign_pack(y.reshape(-1, c_out), tau, flip)
+                       .reshape(got.shape))
+
+
+def test_bitplane_conv_bn_sign_refuses_chunks_below_32(dev):
+    """Where 32 channels' weights fit no band, the fused instance raises
+    (the int32 instance serves the shape with chunks of 8)."""
+    hw, c_in, c_out = (32, 32), 512, 40
+    gen = torch.Generator().manual_seed(5)
+    bplan = bconv.make_bitplane_conv_plan(_pm1(gen, c_out, 3, 3, c_in),
+                                          input_hw=hw, nbits=8)
+    planes = B.pack_bitplanes_uint8(
+        torch.zeros((1, *hw, c_in), dtype=torch.uint8, device=dev), 8)
+    tau, flip = _bn(gen, c_out, 100, dev)
+    with pytest.raises(ValueError, match="32 channels' weights"):
+        bconv.bitplane_conv2d_bn_sign_packed(
+            planes, bplan["w_packed"].to(dev), bplan["rowsum"].to(dev), tau,
+            flip, kh=3, kw=3, stride=1, pads=bplan["pads"],
+            out_hw=bplan["out_hw"], c_out=c_out, k_true=bplan["k_true"],
+            nbits=8)
 
 
 def test_bitplane_conv_refuses_what_shared_memory_cannot_hold(dev):
@@ -279,10 +354,30 @@ def test_forward_launch_counts_and_parity(dev):
     got = fwd(x)
     torch.cuda.synchronize()
     assert {k: v for k, v in ops.launch_counts().items() if v} == {
-        "bitplane_conv": 1, "bn_sign_pack": 1, "conv_bn_sign": 2,
-        "xnor_gemm": 1, "dense_stack": 1}
+        "bitplane_conv_bn_sign": 1, "conv_bn_sign": 2, "xnor_gemm": 1,
+        "dense_stack": 1}
     want = cnn.bcnn_forward_packed(packed, x.to(dev), backend="torch")
     assert torch.equal(got, want)
+
+
+def test_forward_pooled_stage0_launch_counts_and_parity(dev):
+    """A first stage that pools keeps K1, the int32 pool and K2."""
+    spec = cnn.BCNNSpec(input_hw=(16, 16),
+                        stages=(cnn.ConvStage(40, True),
+                                cnn.ConvStage(64, True)),
+                        dense=(128, 10))
+    gen = torch.Generator().manual_seed(1)
+    packed = cnn.pack_bcnn(cnn.init_bcnn(gen, spec), spec)
+    x = torch.randint(0, 256, (5, 16, 16, 3), generator=gen,
+                      dtype=torch.uint8).to(dev)
+    ops.reset_launch_counts()
+    got = cnn.bcnn_forward_packed_int(packed, x)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in ops.launch_counts().items() if v} == {
+        "bitplane_conv": 1, "bn_sign_pack": 1, "conv_bn_sign": 1,
+        "xnor_gemm": 1, "dense_stack": 1}
+    assert torch.equal(got, cnn.bcnn_forward_packed_int(packed, x,
+                                                        backend="torch"))
 
 
 def test_bmlp_launch_counts_and_parity(dev):
