@@ -43,7 +43,20 @@ Phases, each printing its lines:
    arrives and from the card, and at batches 1 and 256 as a CUDA graph
    (the card's own time); the hidden stack at every batch, K6 in every
    tile beside K4-fused per layer; and K4 on both sides of
-   ``binary_matmul.SMALL_M_MAX`` at the LM's widths.
+   ``binary_matmul.SMALL_M_MAX`` at the LM's widths;
+6. serving: ``train.serve.PackedInferenceServer`` on the card (wall
+   clock), each run with the launch counts set to 0 just before it and
+   read just after.  ``BCNNSpec()`` and ``BMLPSpec()`` in both
+   ``dense_stack`` modes, registered from params and spec (packed on the
+   card once; a second ``register`` is a cache hit): a burst of 300
+   requests at ``max_batch`` 256, a ragged tail of 13 that flushes on its
+   deadline, and 20 requests one at a time, three times over (cold
+   buckets, warm, and traced: each flush split by the server's spans);
+   gemma2-9b (the packed tree of phase 4): 8 prompts of 16 tokens, ids up to 255999.  Every served row
+   equal to the direct ``make_packed_forward`` on the flush's rows, each
+   flush's launches equal to the direct forward's at its bucket; per
+   flush batch, bucket, route, launches and wall time beside the direct
+   forward's at that batch; request latency p50/p99 and requests/s.
 
 Every kernel is held to its plain version exactly, but for the attention
 kernel (K8), whose float softmax is held within rtol = atol = 2e-5 (the
@@ -1568,6 +1581,263 @@ def time_forwards(what, packed, inputs) -> None:
             log(line)
 
 
+SERVE_MAX_BATCH = 256
+SERVE_DEADLINE_S = 0.005
+# (traffic, requests): a burst past max_batch, a ragged tail that flushes
+# on its deadline, then requests one at a time (deadline 0)
+SERVE_TRAFFIC = (("burst", 300), ("tail", 13), ("singles", 20))
+# the same traffic three times: the first meets cold buckets, the second
+# gives the end-to-end numbers, the third runs traced (the flush split by
+# the server's spans; its difference from the second is the tracing cost)
+SERVE_PASSES = ("cold", "warm", "traced")
+
+
+class FlushLaunches:
+    """A server ``flush_hook`` that keeps the launch counts of each
+    dispatch: the ``ops.launch_counts()`` delta across its forward."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+        self.ops = ops
+        self.deltas = []
+
+    def __call__(self, eng, buf, reqs, default):
+        before = self.ops.launch_counts()
+        out = default()
+        self.deltas.append({k: v - before[k]
+                            for k, v in self.ops.launch_counts().items()
+                            if v != before[k]})
+        return out
+
+
+def serve_traffic(srv, xs) -> dict:
+    """Drive SERVE_TRAFFIC through ``srv`` on the wall clock: {traffic:
+    (completed requests in flush order, wall s from the first submit to
+    the last completion)}."""
+    out, i = {}, 0
+    for traffic, n in SERVE_TRAFFIC:
+        t0 = time.perf_counter()
+        done = []
+        if traffic == "singles":
+            for x in xs[i:i + n]:
+                srv.submit(x, deadline=0.0)
+                done += srv.step()
+        else:
+            for x in xs[i:i + n]:
+                srv.submit(x)
+            done += srv.step()
+            while srv.pending():
+                time.sleep(SERVE_DEADLINE_S / 20)
+                done += srv.step()
+        out[traffic] = (done, time.perf_counter() - t0)
+        i += n
+    return out
+
+
+def host_forward_ms(fwd, x, reps: int = 5, idle_s: float = 0.0) -> float:
+    """Median wall ms of the direct forward from host memory to a host
+    result, the work a flush does without the server's own; back to back,
+    or each call after ``idle_s`` of host sleep, as a flush that waited
+    for its deadline comes."""
+    fwd(x).cpu()
+    times = []
+    for _ in range(reps):
+        time.sleep(idle_s)
+        t0 = time.perf_counter()
+        fwd(x).cpu()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[reps // 2]
+
+
+def check_served(what, srv, hook, results, direct):
+    """Every flush of the run against the direct forward: its rows equal
+    (the forward on the flush's unpadded rows), its launches equal the
+    direct forward's at its bucket, and on the card not empty.  Returns
+    the run's flush records and {bucket: launch set}."""
+    import torch
+    from repro_torch.kernels import ops
+    done = [r for reqs, _ in results.values() for r in reqs]
+    flushes = srv.flushes[-len(hook.deltas):]
+    if len(flushes) != len(hook.deltas) or \
+            sum(f.batch for f in flushes) != len(done) or \
+            any(r.status != "ok" for r in done):
+        raise AssertionError(f"{what}: {len(done)} requests in "
+                             f"{len(flushes)} flushes, {len(hook.deltas)} "
+                             f"dispatches, not every one served ok")
+    at_bucket, i = {}, 0
+    for f, delta in zip(flushes, hook.deltas):
+        cohort = done[i:i + f.batch]
+        i += f.batch
+        x = torch.stack([r.x for r in cohort])
+        check_equal(f"{what} flush of {f.batch} (bucket {f.bucket}) rows",
+                    torch.stack([r.result for r in cohort]),
+                    direct(x).cpu())
+        if f.bucket not in at_bucket:
+            ops.reset_launch_counts()
+            direct(torch.zeros((f.bucket, *x.shape[1:]), dtype=x.dtype))
+            at_bucket[f.bucket] = {k: v for k, v in
+                                   ops.launch_counts().items() if v}
+        if delta != at_bucket[f.bucket] or \
+                (srv.device.type == "cuda" and not delta):
+            raise AssertionError(f"{what} flush of {f.batch} (bucket "
+                                 f"{f.bucket}): launches {delta}, the "
+                                 f"direct forward's {at_bucket[f.bucket]}")
+        if not bool(torch.isfinite(torch.stack(
+                [r.result for r in cohort])).all()):
+            raise AssertionError(f"{what}: served logits not finite")
+    return flushes, at_bucket
+
+
+def log_served(what, flushes, tracer, results, at_bucket, direct) -> None:
+    """Per traffic: requests/s and latency p50/p99; per kind of flush:
+    batch, bucket, route, launches and median wall, split by the server's
+    spans, beside the direct forward's at that batch and bucket."""
+    from repro_torch.train import serve as sv
+    for traffic, (done, wall) in results.items():
+        lats = sorted(r.latency for r in done)
+        log(f"serve {what} {traffic}: {len(done)} requests in "
+            f"{wall * 1e3:.5g} ms ({len(done) / wall:.6g} requests/s); "
+            f"latency p50 {sv.latency_percentile(lats, 0.5) * 1e3:.5g} ms, "
+            f"p99 {sv.latency_percentile(lats, 0.99) * 1e3:.5g} ms")
+    # the server's spans, one of each per flush in flush order, where the
+    # pass ran traced
+    spans = {name: [e["dur"] / 1e3 for e in tracer.events
+                    if e["name"] == name]
+             for name in ("serve.pack", "serve.dispatch", "serve.compute")}
+    groups = {}
+    for i, f in enumerate(flushes):
+        groups.setdefault((f.batch, f.bucket, f.route), []).append(
+            (f.wall_s * 1e3, *(v[i] if v else 0.0 for v in spans.values())))
+
+    def median(vals):
+        return sorted(vals)[len(vals) // 2]
+
+    example = results["burst"][0][0].x
+    per_bucket = {}
+    for (batch, bucket, route), rows in groups.items():
+        per_bucket[bucket] = per_bucket.get(bucket, 0) + len(rows)
+        wall, pack, dispatch, compute = (median(c) for c in zip(*rows))
+        line = (f"serve {what} flush batch={batch} bucket={bucket} "
+                f"route={route} launches {at_bucket[bucket]}: {len(rows)} "
+                f"flush(es), wall median {wall:.5g} ms")
+        if spans["serve.pack"]:
+            line += (f" (staging {pack:.5g}, dispatch {dispatch:.5g}, host "
+                     f"copy {compute:.5g})")
+        line += "; direct forward from host memory"
+        for b in sorted({batch, bucket}):
+            x = example.expand(b, *example.shape).contiguous()
+            line += (f" at batch {b} {host_forward_ms(direct, x):.5g} ms "
+                     f"back to back, "
+                     f"{host_forward_ms(direct, x, idle_s=SERVE_DEADLINE_S):.5g}"
+                     f" ms after {SERVE_DEADLINE_S * 1e3:g} ms idle")
+        log(line)
+    log(f"serve {what}: flushes per bucket {per_bucket}")
+
+
+def serve_network(kind, params, spec, gen, dev) -> None:
+    """Phase 6 for one network: one server on the card with both
+    dense_stack modes registered from params and spec, SERVE_TRAFFIC
+    through each, every flush checked (``check_served``)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import cnn
+    from repro_torch.train import serve as sv
+    srv = sv.PackedInferenceServer(max_batch=SERVE_MAX_BATCH,
+                                   default_deadline=SERVE_DEADLINE_S,
+                                   device=dev)
+    t0 = time.perf_counter()
+    for mode in MODES:
+        srv.register(mode, params, spec, kind=kind, dense_stack=mode)
+    pack_s = time.perf_counter() - t0
+    srv.register(MODES[0], params, spec, kind=kind, dense_stack=MODES[0])
+    if (srv.cache.misses, srv.cache.hits) != (len(MODES), 1):
+        raise AssertionError(f"serve {kind}: cache misses/hits "
+                             f"{srv.cache.misses}/{srv.cache.hits}")
+    eng = srv.engine()
+    n = sum(k for _, k in SERVE_TRAFFIC)
+    xs = torch.randint(0, 256, (len(SERVE_PASSES), n, *eng.example_shape),
+                       generator=gen, dtype=torch.uint8)
+    log(f"serve {kind}: {len(MODES)} modes packed on {srv.device} in "
+        f"{pack_s:.2f} s, a re-register hit the cache; buckets "
+        f"{eng.buckets}")
+    for mode in MODES:
+        srv.use(mode)
+        direct = cnn.make_packed_forward(srv.engine().packed,
+                                         dense_stack=mode)
+        for p, label in enumerate(SERVE_PASSES):
+            what = f"{kind} {mode} {label}"
+            hook = FlushLaunches()
+            srv.flush_hook = hook
+            srv.telemetry.tracer.clear()
+            if label == "traced":
+                srv.telemetry.enable_tracing()
+            ops.reset_launch_counts()
+            results = serve_traffic(srv, xs[p])
+            srv.telemetry.tracer.disable()
+            torch.cuda.synchronize()
+            total = ops.launch_counts()
+            srv.flush_hook = None
+            summed = {}
+            for d in hook.deltas:
+                for k, v in d.items():
+                    summed[k] = summed.get(k, 0) + v
+            if {k: v for k, v in total.items() if v} != summed:
+                raise AssertionError(f"serve {what}: launches {total} "
+                                     f"beyond the flushes' {summed}")
+            flushes, at_bucket = check_served(f"serve {what}", srv, hook,
+                                              results, direct)
+            log(f"serve {what}: {n} requests in {len(hook.deltas)} "
+                f"flushes, launches in all {summed}; every served row "
+                f"equals the direct forward on its flush's rows, every "
+                f"flush's launches the direct forward's at its bucket")
+            log_served(what, flushes, srv.telemetry.tracer, results,
+                       at_bucket, direct)
+    log(f"serve {kind}: staging pool {srv.pool.allocations} buffers")
+
+
+def serve_lm(spec, packed, gen, dev) -> None:
+    """Phase 6 for the LM: the packed tree of phase 4 registered as it
+    is, 8 prompts of LM_SERVE's 16 tokens, ids up to the vocab's last,
+    in one flush; rows equal to the direct forward, launches its set."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import cnn
+    from repro_torch.train import serve as sv
+    b, s = LM_SERVE[1]
+    srv = sv.PackedInferenceServer(max_batch=b, device=dev)
+    srv.register("lm", packed=packed)
+    eng = srv.engine()
+    tokens = torch.randint(0, spec.vocab_size, (b, s), generator=gen)
+    if eng.input_dtype != torch.int32 or int(tokens.max()) < 256:
+        raise AssertionError(f"serve lm: input dtype {eng.input_dtype}, "
+                             f"largest id {int(tokens.max())}")
+    direct = cnn.make_packed_forward(packed)
+    hook = FlushLaunches()
+    srv.flush_hook = hook
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rids = [srv.submit(t) for t in tokens]
+    done = srv.flush()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    srv.flush_hook = None
+    results = {"burst": (done, wall)}
+    check_served(f"serve lm {spec.name}", srv, hook, results, direct)
+    if [r.rid for r in done] != rids:
+        raise AssertionError("serve lm: requests out of order")
+    f = srv.flushes[-1]
+    lats = sorted(r.latency for r in done)
+    log(f"serve lm {spec.name}: {b} prompts of {s} tokens (ids up to "
+        f"{int(tokens.max())}, staged as {eng.input_dtype}) in 1 flush, "
+        f"batch={f.batch} bucket={f.bucket} route={f.route} launches "
+        f"{hook.deltas[0]}; rows equal the direct forward's; {wall * 1e3:.5g}"
+        f" ms ({b / wall:.6g} prompts/s); latency p50 "
+        f"{sv.latency_percentile(lats, 0.5) * 1e3:.5g} ms, p99 "
+        f"{sv.latency_percentile(lats, 0.99) * 1e3:.5g} ms; direct forward "
+        f"at batch {b} from host memory "
+        f"{host_forward_ms(direct, tokens, reps=3):.5g} ms")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1776,6 +2046,12 @@ def main() -> int:
         log_table(f"attention {what}", rows["attention " + what, 1])
     time_lm(lm, lm_tokens, rates, dev)
     time_route_edge(gen, dev)
+
+    # 6. serving
+    for kind, params, spec in (("bcnn", bparams, bspec),
+                               ("bmlp", mparams, mspec)):
+        serve_network(kind, params, spec, gen, dev)
+    serve_lm(lm_spec, lm, gen, dev)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     kernels = []

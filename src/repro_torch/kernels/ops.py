@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core import binarize as B
 from repro_torch.kernels import binary_attention as _batt
 from repro_torch.kernels import binary_conv as _bconv
@@ -62,6 +63,28 @@ def _resolve(backend: str, x: torch.Tensor) -> str:
     if backend != "torch":
         raise ValueError(f"unknown backend {backend!r}")
     return backend
+
+
+def dispatch_batch(m: int, kw_words: int) -> str:
+    """The route of a flush of ``m`` rows over dense layers of at most
+    ``kw_words`` packed words of K: ``'gemv'`` where K4 takes its XOR +
+    POPC kernel (``binary_matmul.gemm_route`` gives ``ROUTE_SMALL``, that
+    is ``m <= binary_matmul.SMALL_M_MAX``, the crossover measured on the
+    H100), else ``'gemm'`` (the 1-bit tensor-core kernel).  K4's small
+    kernel takes any K, so ``kw_words`` only has to be positive.
+
+    The serving layer's one routing rule (``train.serve``: the route of
+    each ``FlushRecord``, ``route_for``, the ``serve.route.*`` counters).
+    Raises ``ValueError`` if ``m`` or ``kw_words`` is not positive.  Every
+    decision bumps ``ops.dispatch.gemv`` / ``ops.dispatch.gemm`` on the
+    process-wide registry (``telemetry.default()``).
+    """
+    if m < 1 or kw_words < 1:
+        raise ValueError(f"dispatch_batch needs positive (m, kw_words), got "
+                         f"({m}, {kw_words})")
+    route = "gemv" if m <= _bmm.SMALL_M_MAX else "gemm"
+    telemetry.default().metrics.counter(f"ops.dispatch.{route}").inc()
+    return route
 
 
 def _as_float32(x: torch.Tensor) -> torch.Tensor:

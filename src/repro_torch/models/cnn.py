@@ -367,6 +367,36 @@ def packed_dense_kw_words(packed: dict) -> int:
     return max(int(p["w_packed"].shape[1]) for p in layers)
 
 
+def packed_device(packed: dict) -> torch.device:
+    """The device a packed network's tensors are on."""
+    kind = packed_kind(packed)
+    if kind == "transformer":
+        return packed["head"]["w_packed"].device
+    return packed["convs" if kind == "bcnn" else "layers"][0][
+        "w_packed"].device
+
+
+def demo_model(kind: str, *, smoke: bool = False,
+               gen: torch.Generator | None = None):
+    """Reduced evaluation-network preset + random params for demo programs
+    (the serving CLI, ``launch/serve.py``), with the reference's shapes
+    (``src/repro/models/cnn.py:451``).  Returns ``(params, spec, kind)``;
+    ``smoke`` picks CI-sized shapes; the weights come from ``gen`` (seed 0
+    if None)."""
+    gen = torch.Generator().manual_seed(0) if gen is None else gen
+    if kind == "bcnn":
+        spec = BCNNSpec(
+            input_hw=(8, 8) if smoke else (16, 16), c_in=3,
+            stages=(ConvStage(64), ConvStage(64, pool=True)),
+            dense=(128, 10))
+        return init_bcnn(gen, spec), spec, "bcnn"
+    if kind == "bmlp":
+        spec = BMLPSpec(sizes=(784, 256, 256, 10) if smoke
+                        else (784, 1024, 1024, 10))
+        return init_bmlp(gen, spec), spec, "bmlp"
+    raise ValueError(f"kind must be 'bcnn' or 'bmlp', got {kind!r}")
+
+
 def _is_integer(dtype: torch.dtype) -> bool:
     return not (dtype.is_floating_point or dtype.is_complex
                 or dtype == torch.bool)
@@ -381,22 +411,17 @@ def make_packed_forward(packed: dict, *, backend: str = "auto",
     ``dense_stack`` is validated against the network's own modes."""
     kind = packed_kind(packed)
     input_shape = packed_input_shape(packed)
+    device = packed_device(packed)
     if kind == "transformer":
         from repro_torch.models import transformer as tf
         tf.check_dense_stack(dense_stack)
-        forward, device = (tf.transformer_forward_packed,
-                           packed["head"]["w_packed"])
+        forward = tf.transformer_forward_packed
         accepts, want = _is_integer, "integer"
     else:
         _check_dense_stack(dense_stack)
-        if kind == "bcnn":
-            forward, device = (bcnn_forward_packed,
-                               packed["convs"][0]["w_packed"])
-        else:
-            forward, device = (bmlp_forward_packed,
-                               packed["layers"][0]["w_packed"])
+        forward = (bcnn_forward_packed if kind == "bcnn"
+                   else bmlp_forward_packed)
         accepts, want = (lambda dt: dt == torch.uint8), "uint8"
-    device = device.device
 
     def fwd(x) -> torch.Tensor:
         x = torch.as_tensor(x, device=device)

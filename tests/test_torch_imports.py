@@ -2,6 +2,7 @@
 ``chip_smoke.py`` (with the modules its phases import) loads neither JAX
 nor the reference package."""
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -10,7 +11,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "src", "repro_torch")
 
 _PROBE = r"""
-import importlib, pkgutil, sys
+import importlib, json, pkgutil, sys
 sys.path.insert(0, {src!r})
 sys.path.insert(0, {repo!r})
 import repro_torch
@@ -22,7 +23,7 @@ import chip_smoke
 leaked = sorted(m for m in sys.modules
                 if m in ("jax", "jaxlib", "repro")
                 or m.startswith(("jax.", "jaxlib.", "repro.")))
-print(len(names), leaked)
+print(json.dumps([names, leaked]))
 """
 
 
@@ -32,9 +33,14 @@ def test_port_imports_no_jax_and_no_reference():
         [sys.executable, "-c",
          _PROBE.format(src=os.path.join(REPO, "src"), repo=REPO)],
         capture_output=True, text=True, env=env, timeout=300, check=True)
-    n_modules, leaked = out.stdout.split(" ", 1)
-    assert int(n_modules) >= 10
-    assert leaked.strip() == "[]"
+    names, leaked = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(names) >= 10
+    # the serving slice's subpackages are walked too
+    assert {"repro_torch.telemetry", "repro_torch.telemetry.metrics",
+            "repro_torch.telemetry.trace", "repro_torch.train.serve",
+            "repro_torch.runtime.faults",
+            "repro_torch.launch.serve"} <= set(names)
+    assert leaked == []
 
 
 def _imports(path):
