@@ -56,7 +56,22 @@ Phases, each printing its lines:
    equal to the direct ``make_packed_forward`` on the flush's rows, each
    flush's launches equal to the direct forward's at its bucket; per
    flush batch, bucket, route, launches and wall time beside the direct
-   forward's at that batch; request latency p50/p99 and requests/s.
+   forward's at that batch; request latency p50/p99 and requests/s;
+7. sharding and recovery, every mesh position on the one card
+   (``launch.mesh.make_host_mesh``): ``make_sharded_forward`` of
+   ``BCNNSpec()`` and ``BMLPSpec()`` on the meshes (1, 1), (4, 1),
+   (2, 2), (1, 4) and (2, 4) at batches 8 and 256 in both modes, each
+   run's launches held to the shard plan (positions x the unsharded
+   forward's, K4-fused per layer where a hidden layer shards), its
+   gathers and gathered bytes to the packed words of the sharded seams,
+   its int32 pre-BN outputs and logits to ``make_packed_forward``'s;
+   their times beside the unsharded forward's, and the gathers' alone; a
+   server with a (2, 2) mesh behind its queue (a burst of 300 and 20
+   singles, every row held to the unsharded forward, each flush's
+   launches to the sharded forward's at its bucket); the chaos drill
+   (``launch.serve.run_chaos``) on ``BCNNSpec()``, a (4, 2) mesh
+   degrading 8 -> 4 -> 2 from a packed checkpoint, every invariant held;
+   packed-checkpoint save and restore of both networks (ms, MB).
 
 Every kernel is held to its plain version exactly, but for the attention
 kernel (K8), whose float softmax is held within rtol = atol = 2e-5 (the
@@ -1079,7 +1094,7 @@ def ragged_checks(gen, dev) -> list[str]:
         return tau.to(dev), flip.to(dev)
 
     done = []
-    for m, c in BN_SIGN_RAGGED:
+    for m, c in BN_SIGN_RAGGED + SHARD_BN_SIGN:
         x = torch.randint(-60, 60, (m, c), generator=gen,
                           dtype=torch.int32).to(dev)
         tau, flip = bn(c, 60)
@@ -1091,9 +1106,9 @@ def ragged_checks(gen, dev) -> list[str]:
                 raise AssertionError(f"bn_sign_pack M={m} C={c}: path rule")
             check_equal(f"bn_sign_pack M={m} C={c} aligned path {aligned}",
                         fe.bn_sign_pack(xx, tau, flip), want)
-    done.append(f"bn_sign_pack (M, C) in {BN_SIGN_RAGGED} on the general "
-                f"path, and where C % 4 == 0 on the aligned one, tau[0] == "
-                f"x[0, 0]")
+    done.append(f"bn_sign_pack (M, C) in {BN_SIGN_RAGGED + SHARD_BN_SIGN} on "
+                f"the general path, and where C % 4 == 0 on the aligned one, "
+                f"tau[0] == x[0, 0]")
     for m in (1, 37):
         for k in (1, 31, 33, 784, 1000) + BITPACK_ALIGNED:
             x = torch.randn((m, k), generator=gen)
@@ -1116,7 +1131,7 @@ def ragged_checks(gen, dev) -> list[str]:
     done.append(f"bitpack M in (1, 37) x K in (1, 31, 33, 784, 1000) on the "
                 f"general path and K in {BITPACK_ALIGNED} on both, with -0.0,"
                 f" NaN and the tiniest normals")
-    for m, n, k, shift in GEMM_RAGGED:
+    for m, n, k, shift in GEMM_RAGGED + SHARD_GEMM:
         a = B.pack_bits(pm1(m, k)).to(dev)
         w = B.pack_bits(pm1(n, k)).to(dev)
         if shift:           # rows that do not start on 16 bytes
@@ -1181,9 +1196,10 @@ def ragged_checks(gen, dev) -> list[str]:
         done.append(conv_case(2, hw, c_in, c_out, stride, padding))
         done.append(bitplane_check(gen, dev, hw, 3, c_out, stride, padding,
                                    8))
-    for case in CONV_RAGGED:
+    for case in CONV_RAGGED + SHARD_CONV:
         done.append(conv_case(*case))
-    for hw, c_in, c_out, stride, padding, nbits in BITPLANE_RAGGED:
+    for hw, c_in, c_out, stride, padding, nbits in \
+            BITPLANE_RAGGED + SHARD_BITPLANE:
         done.append(bitplane_check(gen, dev, hw, c_in, c_out, stride,
                                    padding, nbits))
     return done
@@ -1258,6 +1274,27 @@ BITPLANE_FUSED_REFUSED = (((32, 32), 512, 40), ((4, 224), 128, 72))
 # warp (M 40000).
 BN_SIGN_RAGGED = ((1, 40), (37, 40), (5, 10), (9, 100), (3, 33),
                   (37, 132), (40000, 128), (40000, 132))
+# The shapes a C_out shard gives the kernels on BCNNSpec() and BMLPSpec()
+# at |model| 2 and 4 (phase 7), at the rows of a data shard of batch 8 or
+# 256: K1-fused at local C_out 64 and 32 (one packed word a pixel); K3 at
+# local C_out 32-256 on each of the BCNN's five stages; K4-fused at N 512
+# and 256 (the BCNN's hidden dense, K 8192 and 1024) and 2048 and 1024
+# (the BMLP's, K 4096), on both of K4's routes; K2 at C 2048 and 1024 (the
+# BMLP's first layer, on its aligned path).
+SHARD_BITPLANE = (((32, 32), 3, 64, 1, "SAME", 8),
+                  ((32, 32), 3, 32, 1, "SAME", 8))
+SHARD_CONV = ((2, (32, 32), 128, 64, 1, "SAME", False),
+              (2, (32, 32), 128, 32, 1, "SAME", False),
+              (2, (16, 16), 128, 128, 1, "SAME", False),
+              (64, (16, 16), 128, 64, 1, "SAME", False),
+              (2, (16, 16), 256, 64, 1, "SAME", False),
+              (2, (8, 8), 256, 256, 1, "SAME", False),
+              (64, (8, 8), 256, 128, 1, "SAME", False),
+              (2, (8, 8), 512, 128, 1, "SAME", False))
+SHARD_GEMM = ((2, 512, 8192, False), (128, 256, 8192, False),
+              (4, 256, 1024, False), (64, 512, 1024, False),
+              (2, 2048, 4096, False), (128, 1024, 4096, False))
+SHARD_BN_SIGN = ((2, 2048), (128, 1024), (64, 2048))
 
 
 @contextlib.contextmanager
@@ -1610,12 +1647,12 @@ class FlushLaunches:
         return out
 
 
-def serve_traffic(srv, xs) -> dict:
-    """Drive SERVE_TRAFFIC through ``srv`` on the wall clock: {traffic:
+def serve_traffic(srv, xs, traffic_mix=SERVE_TRAFFIC) -> dict:
+    """Drive ``traffic_mix`` through ``srv`` on the wall clock: {traffic:
     (completed requests in flush order, wall s from the first submit to
     the last completion)}."""
     out, i = {}, 0
-    for traffic, n in SERVE_TRAFFIC:
+    for traffic, n in traffic_mix:
         t0 = time.perf_counter()
         done = []
         if traffic == "singles":
@@ -1649,11 +1686,12 @@ def host_forward_ms(fwd, x, reps: int = 5, idle_s: float = 0.0) -> float:
     return sorted(times)[reps // 2]
 
 
-def check_served(what, srv, hook, results, direct):
+def check_served(what, srv, hook, results, direct, at_bucket_fwd=None):
     """Every flush of the run against the direct forward: its rows equal
     (the forward on the flush's unpadded rows), its launches equal the
-    direct forward's at its bucket, and on the card not empty.  Returns
-    the run's flush records and {bucket: launch set}."""
+    direct forward's (or ``at_bucket_fwd``'s) at its bucket, and on the
+    card not empty.  Returns the run's flush records and {bucket: launch
+    set}."""
     import torch
     from repro_torch.kernels import ops
     done = [r for reqs, _ in results.values() for r in reqs]
@@ -1674,7 +1712,8 @@ def check_served(what, srv, hook, results, direct):
                     direct(x).cpu())
         if f.bucket not in at_bucket:
             ops.reset_launch_counts()
-            direct(torch.zeros((f.bucket, *x.shape[1:]), dtype=x.dtype))
+            (at_bucket_fwd or direct)(torch.zeros((f.bucket, *x.shape[1:]),
+                                                  dtype=x.dtype))
             at_bucket[f.bucket] = {k: v for k, v in
                                    ops.launch_counts().items() if v}
         if delta != at_bucket[f.bucket] or \
@@ -1836,6 +1875,230 @@ def serve_lm(spec, packed, gen, dev) -> None:
         f"{sv.latency_percentile(lats, 0.99) * 1e3:.5g} ms; direct forward "
         f"at batch {b} from host memory "
         f"{host_forward_ms(direct, tokens, reps=3):.5g} ms")
+
+
+# Phase 7: the meshes, every position on the one card (make_host_mesh
+# puts the positions round-robin over the visible cards), and the batches
+# of the sharded forwards
+SHARD_MESHES = ((1, 1), (4, 1), (2, 2), (1, 4), (2, 4))
+SHARD_BATCHES = (8, 256)
+MESH_SERVE = (2, 2)
+# the mesh server's traffic: phase 6's burst past max_batch and its singles
+MESH_TRAFFIC = (("burst", 300), ("singles", 20))
+
+
+def sharded_expect(expect, plan, n_hidden, positions):
+    """Launches per sharded forward as the shard plan predicts them: each
+    position runs the unsharded forward's kernels on its slice, so every
+    count is multiplied by the positions, but a hidden dense stack with a
+    C_out-sharded layer runs K4-fused per layer in every mode."""
+    out = {k: v * positions for k, v in expect.items()}
+    hidden = plan["dense"][:-1] if "dense" in plan else plan["layer"][1:-1]
+    if any(s > 1 for s in hidden):
+        out.pop("dense_stack", None)
+        out["xnor_gemm_bn_sign"] = n_hidden * positions
+    return out
+
+
+def gather_ms(packed, plan, mesh, batch, dev) -> float:
+    """CUDA-event ms of one forward's gathers alone: each sharded seam's
+    packed words, on every position, concatenated as the forward does."""
+    import torch
+    from repro_torch.distributed import verify_sharded as vs
+    from repro_torch.models import cnn
+    model = mesh.shape["model"]
+    rows = batch // (mesh.size // model)
+    peers = [[i - i % model + j for j in range(model)]
+             for i in range(mesh.size)]
+    seams = []
+    for shape in vs.seam_shapes(packed, plan):
+        local = (*shape[:-1], shape[-1] // model)
+        seams.append([torch.zeros((rows, *local), dtype=torch.int32,
+                                  device=dev) for _ in range(mesh.size)])
+    if not seams:
+        return 0.0
+    return time_ms(lambda: [cnn._gather_packed(hs, peers) for hs in seams],
+                   reps=20)
+
+
+def sharded_path(drv, what, packed, inputs, forward_int, expect, n_hidden,
+                 logits, dev) -> None:
+    """Phase 7's sharded forwards of one network: every mesh of
+    SHARD_MESHES, both dense-stack modes, batches SHARD_BATCHES, each run
+    held to its plan's launches and gathers and to the unsharded forward
+    (``torch.equal``); then the times beside the unsharded forward's."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed import verify_sharded as vs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import cnn
+    for shape in SHARD_MESHES:
+        mesh = make_host_mesh(*shape)
+        for mode in MODES:
+            fwd = sh.make_sharded_forward(packed, mesh, dense_stack=mode)
+            want_launches = sharded_expect(expect[mode], fwd.shard_plan,
+                                           n_hidden, mesh.size)
+            planned = {}
+            for b in SHARD_BATCHES:
+                label = f"{what} sharded {shape} {mode} B={b}"
+                g0 = vs.gather_counts()
+                got_int = drv.run(label, lambda: fwd.forward_int(inputs[b]),
+                                  want_launches)
+                g1 = vs.gather_counts()
+                gathered = (g1[0] - g0[0], g1[1] - g0[1])
+                planned[b] = vs.expected_gathers(packed, fwd.shard_plan,
+                                                 mesh, b)
+                if gathered != planned[b] or \
+                        (shape[1] == 1 and any(gathered)):
+                    raise AssertionError(f"{label}: gathers {gathered}, the "
+                                         f"plan's {planned[b]}")
+                check_equal(f"{label} int32", got_int, forward_int(
+                    packed, inputs[b].to(dev), dense_stack=mode))
+                check_equal(f"{label} logits", fwd(inputs[b]),
+                            logits[mode, b])
+            log(f"sharded {what} {shape} {mode}: plan {fwd.shard_plan}, "
+                f"launches per forward {want_launches}, (gathers, bytes) "
+                f"per forward by batch {planned}; int32 pre-BN outputs and "
+                f"logits equal make_packed_forward's at every batch")
+    for mode in MODES:
+        direct = cnn.make_packed_forward(packed, dense_stack=mode)
+        for b in SHARD_BATCHES:
+            xd = inputs[b].to(dev)
+            base = time_ms(lambda: direct(xd), reps=20)
+            line = (f"sharded {what} {mode} B={b}: unsharded forward "
+                    f"{base:.5g} ms (batch on the card)")
+            for shape in SHARD_MESHES:
+                mesh = make_host_mesh(*shape)
+                fwd = sh.make_sharded_forward(packed, mesh, dense_stack=mode)
+                ms = time_ms(lambda: fwd(xd), reps=20)
+                gms = gather_ms(packed, fwd.shard_plan, mesh, b, dev)
+                nbytes = vs.expected_gathers(packed, fwd.shard_plan, mesh,
+                                             b)[1]
+                line += (f"; {shape} {ms:.5g} ms ({ms / base:.4g}x), "
+                         f"gathers {gms:.5g} ms for {nbytes} bytes")
+            log(line)
+
+
+def serve_mesh(kind, params, spec, gen, dev) -> None:
+    """Phase 7's server: ``PackedInferenceServer`` on the card with a
+    MESH_SERVE mesh behind its queue, MESH_TRAFFIC through it; every row
+    held to the unsharded forward, each flush's launches to the sharded
+    forward's at its bucket."""
+    import torch
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import cnn
+    from repro_torch.train import serve as sv
+    mesh = make_host_mesh(*MESH_SERVE)
+    srv = sv.PackedInferenceServer(max_batch=SERVE_MAX_BATCH,
+                                   default_deadline=SERVE_DEADLINE_S,
+                                   device=dev)
+    srv.register(kind, params, spec, kind=kind, mesh=mesh)
+    eng = srv.engine()
+    direct = cnn.make_packed_forward(eng.packed)
+    sharded = sh.make_sharded_forward(eng.packed, mesh)
+    n = sum(k for _, k in MESH_TRAFFIC)
+    xs = torch.randint(0, 256, (2, n, *eng.example_shape), generator=gen,
+                       dtype=torch.uint8)
+    for p, label in enumerate(("cold", "warm")):
+        what = f"serve {kind} mesh {MESH_SERVE} {label}"
+        hook = FlushLaunches()
+        srv.flush_hook = hook
+        ops.reset_launch_counts()
+        results = serve_traffic(srv, xs[p], MESH_TRAFFIC)
+        torch.cuda.synchronize()
+        srv.flush_hook = None
+        flushes, at_bucket = check_served(what, srv, hook, results, direct,
+                                          at_bucket_fwd=sharded)
+        log(f"{what}: {n} requests in {len(flushes)} flushes, buckets "
+            f"{eng.buckets} (batch_multiple {eng.batch_multiple}); every "
+            f"row equals the unsharded forward, every flush's launches the "
+            f"sharded forward's at its bucket {at_bucket}")
+    for traffic, (done, wall) in results.items():
+        lats = sorted(r.latency for r in done)
+        log(f"{what} {traffic}: {len(done)} requests in {wall * 1e3:.5g} ms "
+            f"({len(done) / wall:.6g} requests/s); latency p50 "
+            f"{sv.latency_percentile(lats, 0.5) * 1e3:.5g} ms, p99 "
+            f"{sv.latency_percentile(lats, 0.99) * 1e3:.5g} ms")
+    groups = {}
+    for f in flushes:
+        groups.setdefault((f.batch, f.bucket), []).append(f.wall_s * 1e3)
+    example = results["burst"][0][0].x
+    for (batch, bucket), walls in sorted(groups.items()):
+        x = example.expand(bucket, *example.shape).contiguous()
+        log(f"{what} flush batch={batch} bucket={bucket}: {len(walls)} "
+            f"flush(es), wall median {sorted(walls)[len(walls) // 2]:.5g} "
+            f"ms; the sharded forward from host memory at batch {bucket} "
+            f"{host_forward_ms(sharded, x):.5g} ms, the unsharded "
+            f"{host_forward_ms(direct, x):.5g} ms")
+
+
+def chaos_drill(params, spec, dev) -> None:
+    """Phase 7's chaos drill (``launch.serve.run_chaos``) on the full-width
+    network: a (4, 2) mesh of eight positions on the card degrades 8 -> 4
+    -> 2, restoring from a packed checkpoint; every invariant must hold."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as cli
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = cli.run_chaos(params, spec, "bcnn", device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: v for k, v in ops.launch_counts().items() if v}
+    bad = [name for name, ok in out["invariants"].items() if not ok]
+    if bad or not launched:
+        raise AssertionError(f"chaos drill: invariants failed {bad}, "
+                             f"launches {launched}")
+    for p in out["phases"]:
+        log(f"chaos {p['phase']}: {p['statuses']}")
+    log(f"chaos drill bcnn: every invariant held "
+        f"({sorted(out['invariants'])}); tally {out['tally']} of "
+        f"{out['submitted']} submitted, {out['lost']} lost; launches "
+        f"{launched}; {wall:.3f} s on the host clock")
+    for e in out["events"]:
+        log(f"chaos degrade to {e['survivors']} positions: mesh "
+            f"{tuple(e['mesh_shape'])}, restored from {e['restored_from']}, "
+            f"{e['requeued']} requeued; remesh + restore + rebuild "
+            f"{e['wall_s'] * 1e3:.5g} ms")
+
+
+def checkpoint_times(what, packed, dev) -> None:
+    """Packed-checkpoint save (card -> disk) and restore (disk -> card, and
+    onto a MESH_SERVE mesh) of one network, in ms and MB, in a temporary
+    directory; the restored tree equal to the saved one."""
+    import tempfile
+    import torch
+    from repro_torch import checkpoint as ck
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.tree import leaves_with_path
+    mesh = make_host_mesh(*MESH_SERVE)
+    with tempfile.TemporaryDirectory(prefix="chip_ckpt_") as d:
+        times = {"save": [], "restore": [], "restore onto a mesh": []}
+        for step in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = ck.save_packed_checkpoint(d, step, packed)
+            times["save"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            back, _ = ck.load_packed_checkpoint(d, step, packed)
+            torch.cuda.synchronize()
+            times["restore"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            placed, _ = ck.load_packed_checkpoint(d, step, packed, mesh=mesh)
+            torch.cuda.synchronize()
+            times["restore onto a mesh"].append(time.perf_counter() - t0)
+        for (pa, a), (_, b) in zip(leaves_with_path(back),
+                                   leaves_with_path(packed)):
+            if isinstance(b, torch.Tensor):
+                check_equal(f"checkpoint {what} {pa}", a, b)
+        if not isinstance(placed["bn_out"]["gamma"], sh.Placed):
+            raise AssertionError(f"checkpoint {what}: not placed")
+        mb = os.path.getsize(os.path.join(path, "arrays.npz")) / 1e6
+    log(f"checkpoint {what}: {mb:.4g} MB; " + "; ".join(
+        f"{k} {sorted(v)[1] * 1e3:.5g} ms (median of 3)"
+        for k, v in times.items()) + "; restored words equal the saved ones")
 
 
 def main() -> int:
@@ -2052,6 +2315,22 @@ def main() -> int:
                                ("bmlp", mparams, mspec)):
         serve_network(kind, params, spec, gen, dev)
     serve_lm(lm_spec, lm, gen, dev)
+
+    # 7. the sharded forwards, the mesh server, the chaos drill, checkpoints
+    n_hidden = {"bcnn": len(bspec.dense) - 1, "bmlp": len(mspec.sizes) - 3}
+    for what, packed, inputs, forward_int, expect, logits in (
+            ("bcnn", bcnn, bcnn_in, cnn.bcnn_forward_packed_int,
+             bcnn_expect, bcnn_logits),
+            ("bmlp", bmlp, bmlp_in, cnn.bmlp_forward_packed_int,
+             bmlp_expect, bmlp_logits)):
+        sharded_path(drv, what, packed, inputs, forward_int, expect,
+                     n_hidden[what], logits, dev)
+    for kind, params, spec in (("bcnn", bparams, bspec),
+                               ("bmlp", mparams, mspec)):
+        serve_mesh(kind, params, spec, gen, dev)
+    chaos_drill(bparams, bspec, dev)
+    checkpoint_times("bcnn", bcnn, dev)
+    checkpoint_times("bmlp", bmlp, dev)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     kernels = []

@@ -201,6 +201,24 @@ def apply_binary_conv2d_bn_packed(packed: Params, folded: Params,
                                              backend=backend)
 
 
+def localize_conv_plan(plan: Params, n_shards: int) -> Params:
+    """One shard's view of a conv plan whose C_out axis is split
+    ``n_shards`` ways (the C_out-parallel sharded forward).
+
+    The tensors (``w_packed``, ``correction``, ``rowsum``) arrive already
+    sliced by the placement (``distributed.sharding.shard_packed``); only
+    the static ``c_out`` is rewritten to the local count.  ``k_true``,
+    the geometry and ``cw`` are contraction-side statics and stay global:
+    every shard consumes the full input.
+    """
+    if n_shards == 1:
+        return plan
+    c_out = plan["c_out"]
+    if c_out % n_shards:
+        raise ValueError(f"c_out {c_out} does not split {n_shards} ways")
+    return {**plan, "c_out": c_out // n_shards}
+
+
 def pack_bitplane_conv2d(params: Params, *, input_hw: tuple[int, int],
                          stride: int = 1, padding: str = "SAME",
                          nbits: int = 8) -> Params:

@@ -23,6 +23,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from repro_torch import telemetry
 from repro_torch.core import binarize as B
 from repro_torch.core import binary_layers as L
 from repro_torch.kernels import binary_conv as bconv
@@ -51,24 +52,80 @@ def _check_device(device) -> torch.device:
     return device
 
 
-def _check_dense_stack(dense_stack: str) -> None:
+def check_dense_stack(dense_stack: str) -> None:
     if dense_stack not in ("auto", "resident", "per_layer"):
         raise ValueError(f"unknown dense_stack mode {dense_stack!r}")
 
 
-def _dense_hidden_stack(layers: list, foldeds: list, hp: torch.Tensor, *,
-                        backend: str, dense_stack: str) -> torch.Tensor:
+# ---------------------------------------------------------------------------
+# Positions: one stage loop for the unsharded and the sharded forward
+# ---------------------------------------------------------------------------
+#
+# A forward runs on a list of positions, each with its own packed tree and
+# activation on its own device: one position for the unsharded forward,
+# one per mesh position for the sharded one
+# (``distributed.sharding.make_sharded_forward``).  A stage whose C_out is
+# split ``shards`` > 1 ways over the 'model' axis runs on each position's
+# local output channels, so each position emits its own span of packed
+# words; ``peers[i]`` lists, in model order, the positions whose spans
+# position ``i`` gathers before the next stage contracts over all
+# channels.
+
+def _gather_packed(hs: list, peers: list) -> list:
+    """Reassemble C_out-sharded PACKED activations along their word axis.
+
+    Each position concatenates its peers' word spans, in model order, on
+    its own device: the exact unsharded word layout.  This is the ONLY
+    traffic between positions in the packed forward, and it moves 1-bit
+    words, never an int32 activation.  Every gather site adds one to
+    ``sharding.gathers`` and the bytes the positions receive from their
+    peers to ``sharding.gathered_bytes`` on the process-wide registry
+    (``telemetry.default()``), per call: the reference counts each gather
+    site once per trace, since its compiled forward re-runs untraced.
+    """
+    tel = telemetry.default()
+    with tel.span("sharding.gather", positions=len(hs)):
+        out = [torch.cat([hs[j].to(h.device) for j in peers[i]], dim=-1)
+               for i, h in enumerate(hs)]
+    received = sum(hs[j].numel() * hs[j].element_size()
+                   for i in range(len(hs)) for j in peers[i] if j != i)
+    tel.metrics.counter("sharding.gathers").inc()
+    tel.metrics.counter("sharding.gathered_bytes").inc(received)
+    return out
+
+
+def _seam(hs: list, peers: list, shards: int) -> list:
+    """A stage's output: gathered where the stage was C_out-sharded."""
+    return _gather_packed(hs, peers) if shards > 1 else hs
+
+
+def _dense_hidden_stack(layers: list, foldeds: list, hs: list, peers: list,
+                        shards: tuple, *, backend: str,
+                        dense_stack: str) -> list:
     """The hidden dense stack shared by both networks, packed in / packed
-    out: one launch for the whole stack when its weights fit the H100
-    residency rule (``'auto'``; ``'resident'`` forces it), one fused
-    GEMM + BN-sign + re-bitpack launch per layer otherwise
-    (``'per_layer'`` forces that)."""
-    _check_dense_stack(dense_stack)
-    resident = {"auto": None, "resident": True,
-                "per_layer": False}[dense_stack]
-    return L.apply_binary_dense_stack_packed(layers, foldeds, hp,
-                                             backend=backend,
-                                             resident=resident)
+    out; ``layers[p]`` / ``foldeds[p]`` are position ``p``'s.  A stack no
+    layer of which is sharded is one launch (K6) where its weights fit
+    the H100 residency rule (``'auto'``; ``'resident'`` forces it), one
+    fused GEMM + BN-sign + re-bitpack launch per layer otherwise
+    (``'per_layer'`` forces that).  Sharded layers always run per layer
+    on their local rows, each followed by its gather."""
+    check_dense_stack(dense_stack)
+    if all(s == 1 for s in shards):
+        resident = {"auto": None, "resident": True,
+                    "per_layer": False}[dense_stack]
+        return [L.apply_binary_dense_stack_packed(ls, fs, h, backend=backend,
+                                                  resident=resident)
+                for ls, fs, h in zip(layers, foldeds, hs)]
+    for i, s in enumerate(shards):
+        hs = _seam([L.apply_binary_dense_bn_packed(ls[i], fs[i], h,
+                                                   backend=backend)
+                    for ls, fs, h in zip(layers, foldeds, hs)], peers, s)
+    return hs
+
+
+def apply_output_batchnorm(packed: dict, z: torch.Tensor) -> torch.Tensor:
+    """The float output batch norm on the output layer's int32 values."""
+    return L.apply_batchnorm(packed["bn_out"], z)
 
 
 # ---------------------------------------------------------------------------
@@ -122,24 +179,43 @@ def pack_bmlp(params: dict, spec: BMLPSpec, device="cuda") -> dict:
     return packed
 
 
-def bmlp_forward_packed_int(packed: dict, x_uint8: torch.Tensor, *,
-                            backend: str = "auto",
-                            dense_stack: str = "auto") -> torch.Tensor:
-    """The packed forward up to the output layer's int32 pre-BN values.
+def bmlp_forward_positions(trees: list, xs: list, peers: list,
+                           shard_plan: dict, *, backend: str = "auto",
+                           dense_stack: str = "auto") -> list:
+    """The packed BMLP on positions (see ``_gather_packed``): position
+    ``p`` runs ``trees[p]`` on ``xs[p]``; ``shard_plan["layer"][i]`` is
+    layer ``i``'s C_out split.  Returns each position's int32 output.
 
     Layer 0 is the bit-plane dense layer (one ``bitpack`` and one K4 over
     the stacked planes) and the standalone BN-sign pack (K2); the hidden
     layers are the dense stack (K6, or K4-fused per layer); the output
     layer is the int32 GEMM (K4).
     """
-    layers = packed["layers"]
-    n = len(layers)
-    z = L.apply_bitplane_dense_packed(layers[0], x_uint8, backend=backend)
-    hp = L.apply_bn_sign_folded_packed(packed["folded"][0], z,
-                                       backend=backend)
-    hp = _dense_hidden_stack(layers[1:n - 1], packed["folded"][1:], hp,
-                             backend=backend, dense_stack=dense_stack)
-    return L.apply_binary_dense_prepacked(layers[n - 1], hp, backend=backend)
+    layer_shards = shard_plan["layer"]
+    n = len(trees[0]["layers"])
+    if layer_shards[-1] != 1:
+        raise ValueError("the output layer must stay replicated")
+    hs = _seam([L.apply_bn_sign_folded_packed(
+        t["folded"][0], L.apply_bitplane_dense_packed(t["layers"][0], x,
+                                                      backend=backend),
+        backend=backend) for t, x in zip(trees, xs)], peers, layer_shards[0])
+    hs = _dense_hidden_stack([t["layers"][1:n - 1] for t in trees],
+                             [t["folded"][1:] for t in trees], hs, peers,
+                             layer_shards[1:n - 1], backend=backend,
+                             dense_stack=dense_stack)
+    return [L.apply_binary_dense_prepacked(t["layers"][n - 1], h,
+                                           backend=backend)
+            for t, h in zip(trees, hs)]
+
+
+def bmlp_forward_packed_int(packed: dict, x_uint8: torch.Tensor, *,
+                            backend: str = "auto",
+                            dense_stack: str = "auto") -> torch.Tensor:
+    """The packed forward up to the output layer's int32 pre-BN values
+    (:func:`bmlp_forward_positions` on one position)."""
+    plan = {"layer": (1,) * len(packed["layers"])}
+    return bmlp_forward_positions([packed], [x_uint8], [[0]], plan,
+                                  backend=backend, dense_stack=dense_stack)[0]
 
 
 def bmlp_forward_packed(packed: dict, x_uint8: torch.Tensor, *,
@@ -150,7 +226,7 @@ def bmlp_forward_packed(packed: dict, x_uint8: torch.Tensor, *,
     ``dense_stack`` as in :func:`bcnn_forward_packed`."""
     z = bmlp_forward_packed_int(packed, x_uint8, backend=backend,
                                 dense_stack=dense_stack)
-    return L.apply_batchnorm(packed["bn_out"], z)
+    return apply_output_batchnorm(packed, z)
 
 
 # ---------------------------------------------------------------------------
@@ -276,41 +352,71 @@ def pack_bcnn(params: dict, spec: BCNNSpec, device="cuda") -> dict:
     return packed
 
 
-def bcnn_forward_packed_int(packed: dict, x_uint8: torch.Tensor, *,
-                            backend: str = "auto",
-                            dense_stack: str = "auto") -> torch.Tensor:
-    """The packed forward up to the output layer's int32 pre-BN values.
+def bcnn_forward_positions(trees: list, xs: list, peers: list,
+                           shard_plan: dict, *, backend: str = "auto",
+                           dense_stack: str = "auto") -> list:
+    """The packed BCNN on positions (see ``_gather_packed``): position
+    ``p`` runs ``trees[p]`` on ``xs[p]``; ``shard_plan["conv"][i]`` and
+    ``shard_plan["dense"][i]`` are each stage's C_out split.  Returns each
+    position's int32 output.
 
     Stage 0 is the bit-plane conv with the BN-sign pack fused in (K1's
     fused instance) where the stage does not pool, as ``BCNNSpec()``'s
     does; where it pools, the bit-plane conv (K1), the int32 pool and the
     standalone BN-sign pack (K2), in the reference's order.  Stages 1..
-    are fused conv + BN-sign + repack (K3) with bit-domain pooling.  The
-    hidden dense layers are the dense stack (K6, or K4-fused per layer)
-    and the output layer is the int32 GEMM (K4).
+    are fused conv + BN-sign + repack (K3) with bit-domain pooling under
+    the (local) pool mask.  The hidden dense layers are the dense stack
+    (K6, or K4-fused per layer) and the output layer is the int32 GEMM
+    (K4).  A sharded stage's conv plan is localized to its C_out share.
     """
-    spec: BCNNSpec = packed["spec"]
-    if spec.stages[0].pool:
-        z = L.apply_bitplane_conv2d_packed(packed["convs"][0], x_uint8,
-                                           backend=backend)
-        hp = L.apply_bn_sign_folded_packed(packed["folded_conv"][0],
-                                           L.maxpool2d(z), backend=backend)
-    else:
-        hp = L.apply_bitplane_conv2d_bn_packed(
-            packed["convs"][0], packed["folded_conv"][0], x_uint8,
-            backend=backend)
-    for i in range(1, len(packed["convs"])):
-        hp = L.apply_binary_conv2d_bn_packed(packed["convs"][i],
-                                             packed["folded_conv"][i], hp,
-                                             backend=backend)
+    spec: BCNNSpec = trees[0]["spec"]
+    conv_shards, dense_shards = shard_plan["conv"], shard_plan["dense"]
+    if dense_shards[-1] != 1:
+        raise ValueError("the output layer must stay replicated")
+
+    def stage0(t, x):
+        pc = L.localize_conv_plan(t["convs"][0], conv_shards[0])
+        if spec.stages[0].pool:
+            z = L.apply_bitplane_conv2d_packed(pc, x, backend=backend)
+            return L.apply_bn_sign_folded_packed(t["folded_conv"][0],
+                                                 L.maxpool2d(z),
+                                                 backend=backend)
+        return L.apply_bitplane_conv2d_bn_packed(pc, t["folded_conv"][0], x,
+                                                 backend=backend)
+
+    def stage(i, t, h):
+        h = L.apply_binary_conv2d_bn_packed(
+            L.localize_conv_plan(t["convs"][i], conv_shards[i]),
+            t["folded_conv"][i], h, backend=backend)
         if spec.stages[i].pool:
-            hp = L.maxpool2d_packed(hp, packed["pool_masks"][i])
-    h = hp.reshape(hp.shape[0], -1)            # packed (B, fh*fw*Cw) words
-    n = len(packed["denses"])
-    h = _dense_hidden_stack(packed["denses"][:n - 1], packed["folded_dense"],
-                            h, backend=backend, dense_stack=dense_stack)
-    return L.apply_binary_dense_prepacked(packed["denses"][n - 1], h,
-                                          backend=backend)
+            h = L.maxpool2d_packed(h, t["pool_masks"][i])
+        return h
+
+    hs = _seam([stage0(t, x) for t, x in zip(trees, xs)], peers,
+               conv_shards[0])
+    for i in range(1, len(spec.stages)):
+        hs = _seam([stage(i, t, h) for t, h in zip(trees, hs)], peers,
+                   conv_shards[i])
+    hs = [h.reshape(h.shape[0], -1) for h in hs]   # packed (B, fh*fw*Cw)
+    n = len(trees[0]["denses"])
+    hs = _dense_hidden_stack([t["denses"][:n - 1] for t in trees],
+                             [t["folded_dense"] for t in trees], hs, peers,
+                             dense_shards[:n - 1], backend=backend,
+                             dense_stack=dense_stack)
+    return [L.apply_binary_dense_prepacked(t["denses"][n - 1], h,
+                                           backend=backend)
+            for t, h in zip(trees, hs)]
+
+
+def bcnn_forward_packed_int(packed: dict, x_uint8: torch.Tensor, *,
+                            backend: str = "auto",
+                            dense_stack: str = "auto") -> torch.Tensor:
+    """The packed forward up to the output layer's int32 pre-BN values
+    (:func:`bcnn_forward_positions` on one position)."""
+    plan = {"conv": (1,) * len(packed["convs"]),
+            "dense": (1,) * len(packed["denses"])}
+    return bcnn_forward_positions([packed], [x_uint8], [[0]], plan,
+                                  backend=backend, dense_stack=dense_stack)[0]
 
 
 def bcnn_forward_packed(packed: dict, x_uint8: torch.Tensor, *,
@@ -324,7 +430,7 @@ def bcnn_forward_packed(packed: dict, x_uint8: torch.Tensor, *,
     """
     z = bcnn_forward_packed_int(packed, x_uint8, backend=backend,
                                 dense_stack=dense_stack)
-    return L.apply_batchnorm(packed["bn_out"], z)
+    return apply_output_batchnorm(packed, z)
 
 
 def packed_kind(packed: dict) -> str:
@@ -402,6 +508,22 @@ def _is_integer(dtype: torch.dtype) -> bool:
                 or dtype == torch.bool)
 
 
+def check_input(kind: str, input_shape: tuple[int, ...], x,
+                device=None) -> torch.Tensor:
+    """``x`` (numpy or a tensor) as a tensor on ``device`` (where it is if
+    None), checked against a packed network's input: uint8 for the bcnn
+    and the bmlp, any integer dtype for the transformer's token ids, of
+    shape (B, *input_shape).  Raises ``ValueError`` otherwise."""
+    x = torch.as_tensor(x, device=device)
+    ok = _is_integer(x.dtype) if kind == "transformer" else \
+        x.dtype == torch.uint8
+    if not ok or tuple(x.shape[1:]) != input_shape:
+        want = "integer" if kind == "transformer" else "uint8"
+        raise ValueError(f"expected {want} (B, {input_shape}) input, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    return x
+
+
 def make_packed_forward(packed: dict, *, backend: str = "auto",
                         dense_stack: str = "auto"):
     """Forward ``fwd(x) -> logits`` of a packed network, on the device its
@@ -416,17 +538,12 @@ def make_packed_forward(packed: dict, *, backend: str = "auto",
         from repro_torch.models import transformer as tf
         tf.check_dense_stack(dense_stack)
         forward = tf.transformer_forward_packed
-        accepts, want = _is_integer, "integer"
     else:
-        _check_dense_stack(dense_stack)
+        check_dense_stack(dense_stack)
         forward = (bcnn_forward_packed if kind == "bcnn"
                    else bmlp_forward_packed)
-        accepts, want = (lambda dt: dt == torch.uint8), "uint8"
 
     def fwd(x) -> torch.Tensor:
-        x = torch.as_tensor(x, device=device)
-        if not accepts(x.dtype) or tuple(x.shape[1:]) != input_shape:
-            raise ValueError(f"expected {want} (B, {input_shape}) input, got "
-                             f"{x.dtype} {tuple(x.shape)}")
-        return forward(packed, x, backend=backend, dense_stack=dense_stack)
+        return forward(packed, check_input(kind, input_shape, x, device),
+                       backend=backend, dense_stack=dense_stack)
     return fwd

@@ -31,8 +31,8 @@ reference's server):
   completes ``error`` and its former cohort-mates complete ``ok``.
 * ``device_loss`` — the dispatch raises :class:`~repro_torch.train.serve.
   DeviceLossError` once; the server requeues the window (zero requests
-  lost) and re-raises for its caller (the reference's supervisor, which
-  shrinks a mesh, is not ported).
+  lost) and re-raises for its caller (``runtime.supervisor.
+  ServingSupervisor``, which shrinks the mesh).
 * ``slow``       — the dispatch completes but only after ``delay_s``
   (clock jump); with ``timeout_grace`` set, requests still queued
   behind the slow flush age past their grace and complete ``timeout``.

@@ -26,8 +26,11 @@ What differs from the reference, and why:
 * **Results** are rows of a CPU tensor: the forward's output is copied
   to the host once per flush, and that copy is where ``serve.compute``
   blocks on the device work.
-* **Not ported:** the ``mesh=`` argument (sharding), the LM decode
-  server (``BatchedServer``) and its step factories.
+* **A mesh behind the queue** (``mesh=``) is a ``launch.mesh.Mesh``
+  driven from this process (``distributed.sharding``); its positions may
+  share one card.
+* **Not ported:** the LM decode server (``BatchedServer``) and its step
+  factories.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import cnn as C
 from repro_torch.models.cnn import _check_device
 from repro_torch.telemetry import MetricsRegistry, Telemetry
@@ -242,7 +246,9 @@ class _Engine:
     """One registered model: its packed tree + forward + the static facts
     the queue needs to stage, size and route flushes.  ``input_dtype``
     holds every valid input value, which lies in ``[0, input_limit)``:
-    a pixel (uint8, 256) or a token id (the vocab)."""
+    a pixel (uint8, 256) or a token id (the vocab).  Every bucket is a
+    multiple of ``batch_multiple`` (the mesh's data size, 1 without a
+    mesh)."""
     kind: str
     packed: Any
     fwd: Callable[[Any], torch.Tensor]
@@ -250,6 +256,7 @@ class _Engine:
     input_dtype: torch.dtype
     input_limit: int
     kw_words: int
+    batch_multiple: int
     buckets: tuple[int, ...]
 
 
@@ -260,6 +267,10 @@ def _default_buckets(max_batch: int) -> tuple[int, ...]:
         b *= 2
     out.append(max_batch)
     return tuple(sorted(set(out)))
+
+
+def _ceil_mult(x: int, m: int) -> int:
+    return -(-x // m) * m
 
 
 def _input_type(packed: dict) -> tuple[torch.dtype, int]:
@@ -442,17 +453,16 @@ class PackedInferenceServer:
         tree on that device via ``packed=``.  Re-registering a known key
         is a cache hit: neither the packed tree nor the forward is
         rebuilt.  ``backend`` and ``dense_stack`` go to
-        ``make_packed_forward``.  ``mesh`` is not ported and raises
-        ``NotImplementedError``.
+        ``make_packed_forward``.  ``mesh`` puts a ``(data, model)`` mesh
+        behind the queue (``distributed.sharding.make_sharded_forward``;
+        ``packed=`` may then lie on any device); flush buckets are then
+        rounded up to the mesh's data size.  The transformer takes no
+        mesh (``ValueError``).
         """
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh serving is not ported yet: it waits for the port's "
-                "sharding (ROADMAP.md, queue 1, item 7)")
         if key not in self._engines:
             self._engines[key] = self._build_engine(
                 key, params, spec, kind=kind, packed=packed,
-                backend=backend, dense_stack=dense_stack)
+                backend=backend, dense_stack=dense_stack, mesh=mesh)
         else:
             # touch the weight cache so a re-register is an observable hit
             self.cache.get_or_pack(key, lambda: self._engines[key].packed)
@@ -461,10 +471,14 @@ class PackedInferenceServer:
         return key
 
     def _build_engine(self, key, params, spec, *, kind, packed, backend,
-                      dense_stack) -> _Engine:
+                      dense_stack, mesh) -> _Engine:
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a launch.mesh.Mesh, got "
+                            f"{type(mesh).__name__}")
         if packed is not None:
-            on = C.packed_device(packed)
-            if on != self.device:
+            # a mesh places the tree itself, from wherever it lies
+            on = None if mesh is not None else C.packed_device(packed)
+            if on is not None and on != self.device:
                 raise ValueError(f"packed tree on {on}, server on "
                                  f"{self.device}")
             packed_tree = self.cache.get_or_pack(key, lambda: packed)
@@ -480,15 +494,30 @@ class PackedInferenceServer:
                 pack = C.pack_bcnn if kind == "bcnn" else C.pack_bmlp
             packed_tree = self.cache.get_or_pack(
                 key, lambda: pack(params, spec, device=self.device))
-        fwd = C.make_packed_forward(packed_tree, backend=backend,
-                                    dense_stack=dense_stack)
+        kind = C.packed_kind(packed_tree)
+        if kind == "transformer" and mesh is not None:
+            raise ValueError(
+                "mesh serving is not supported for the transformer "
+                "workload (the sharding rules cover bcnn/bmlp)")
+        if mesh is not None:
+            from repro_torch.distributed.sharding import make_sharded_forward
+            fwd = make_sharded_forward(packed_tree, mesh, backend=backend,
+                                       dense_stack=dense_stack,
+                                       telemetry=self.telemetry)
+            batch_multiple = fwd.batch_multiple
+        else:
+            fwd = C.make_packed_forward(packed_tree, backend=backend,
+                                        dense_stack=dense_stack)
+            batch_multiple = 1
         input_dtype, input_limit = _input_type(packed_tree)
-        return _Engine(kind=C.packed_kind(packed_tree), packed=packed_tree,
-                       fwd=fwd,
+        return _Engine(kind=kind, packed=packed_tree, fwd=fwd,
                        example_shape=C.packed_input_shape(packed_tree),
                        input_dtype=input_dtype, input_limit=input_limit,
                        kw_words=C.packed_dense_kw_words(packed_tree),
-                       buckets=self._bucket_template)
+                       batch_multiple=batch_multiple,
+                       buckets=tuple(sorted({
+                           _ceil_mult(b, batch_multiple)
+                           for b in self._bucket_template})))
 
     def use(self, key) -> list[ServeRequest]:
         """Switch the active model.  Pending requests were submitted
@@ -519,7 +548,7 @@ class PackedInferenceServer:
 
     def rebuild_engine(self, key, *, packed=None, params=None, spec=None,
                        kind: str | None = None, backend: str = "auto",
-                       dense_stack: str = "auto") -> Any:
+                       dense_stack: str = "auto", mesh=None) -> Any:
         """Drop and rebuild the engine for ``key`` WITHOUT flushing
         pending work — the recovery seam after a device loss.
 
@@ -527,10 +556,9 @@ class PackedInferenceServer:
         after a device loss that engine's forward can never complete, so
         the caller swaps the engine out from under the queue instead: the
         cache entry and forward are dropped, a new engine is built from
-        ``packed`` (or ``params`` + ``spec``), and the still-queued
-        requests are served by the NEW engine on the next step — zero
-        requests lost.  (The reference's ``mesh`` argument waits for the
-        port's sharding.)
+        ``packed`` (typically the warm-restored tree) on ``mesh`` (or
+        ``params`` + ``spec``), and the still-queued requests are served
+        by the NEW engine on the next step — zero requests lost.
         """
         if key not in self._engines:
             raise KeyError(f"unknown model key {key!r}")
@@ -538,7 +566,7 @@ class PackedInferenceServer:
         self._engines.pop(key)
         self._engines[key] = self._build_engine(
             key, params, spec, kind=kind, packed=packed,
-            backend=backend, dense_stack=dense_stack)
+            backend=backend, dense_stack=dense_stack, mesh=mesh)
         return key
 
     def engine(self, key=None) -> _Engine:

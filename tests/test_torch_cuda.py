@@ -623,3 +623,94 @@ def test_bitpack_general_path(dev, k):
     view = _misaligned(x) if k % 32 == 0 else x
     assert not bp.packs_aligned(k, view.data_ptr())
     assert torch.equal(bp.bitpack(view), ref.bitpack_ref(view))
+
+
+# The kernels at the shapes a C_out shard gives them on BCNNSpec() and
+# BMLPSpec() at |model| 2 and 4 (distributed/sharding.py): K1-fused at
+# local C_out 64 and 32 (one packed word a pixel), K3 at local C_out 32 to
+# 256 on the BCNN's stages, K4-fused at N 256 and 512 (the BCNN's hidden
+# dense) and 1024 and 2048 (the BMLP's), K2 at C 1024 and 2048.
+@pytest.mark.parametrize("c_out", [64, 32])
+def test_bitplane_conv_bn_sign_at_shard_widths(dev, c_out):
+    gen = torch.Generator().manual_seed(c_out)
+    bplan = bconv.make_bitplane_conv_plan(_pm1(gen, c_out, 3, 3, 3),
+                                          input_hw=(32, 32))
+    planes = B.pack_bitplanes_uint8(torch.randint(
+        0, 256, (2, 32, 32, 3), generator=gen, dtype=torch.uint8).to(dev))
+    bargs = (planes, bplan["w_packed"].to(dev), bplan["rowsum"].to(dev))
+    geom = dict(kh=3, kw=3, stride=1, pads=bplan["pads"], c_out=c_out,
+                k_true=bplan["k_true"], nbits=8)
+    tau, flip = _bn(gen, c_out, 256 * 9, dev)
+    assert torch.equal(
+        bconv.bitplane_conv2d_bn_sign_packed(*bargs, tau, flip,
+                                             out_hw=bplan["out_hw"], **geom),
+        ref.bn_sign_pack_ref(ref.bitplane_conv2d_planes_ref(*bargs, **geom),
+                             tau, flip))
+
+
+@pytest.mark.parametrize("bsz,hw,c_in,c_out", [
+    (2, (32, 32), 128, 64), (2, (32, 32), 128, 32), (64, (16, 16), 128, 64),
+    (2, (16, 16), 256, 128), (2, (8, 8), 256, 256), (64, (8, 8), 512, 128)])
+def test_conv_bn_sign_at_shard_widths(dev, bsz, hw, c_in, c_out):
+    gen = torch.Generator().manual_seed(bsz + c_in + c_out)
+    plan = bconv.make_conv_plan(_pm1(gen, c_out, 3, 3, c_in), input_hw=hw)
+    geom = dict(kh=3, kw=3, stride=1, pads=plan["pads"], c_out=c_out,
+                k_true=plan["k_true"])
+    x = B.pack_bits(_pm1(gen, bsz, *hw, c_in)).to(dev)
+    tau, flip = _bn(gen, c_out, plan["k_true"], dev)
+    args = (x, plan["w_packed"].to(dev), plan["correction"].to(dev), tau,
+            flip)
+    assert torch.equal(
+        bconv.binary_conv2d_bn_sign_packed(*args, out_hw=plan["out_hw"],
+                                           **geom),
+        ref.binary_conv2d_bn_sign_packed_ref(*args, **geom))
+
+
+@pytest.mark.parametrize("m,n,k", [(2, 512, 8192), (128, 256, 8192),
+                                   (4, 256, 1024), (2, 2048, 4096),
+                                   (128, 1024, 4096)])
+def test_xnor_gemm_bn_sign_at_shard_widths(dev, m, n, k):
+    gen = torch.Generator().manual_seed(m + n + k)
+    a = B.pack_bits(_pm1(gen, m, k)).to(dev)
+    w = B.pack_bits(_pm1(gen, n, k)).to(dev)
+    tau, flip = _bn(gen, n, k, dev)
+    assert torch.equal(
+        bmm.binary_matmul_bn_sign_packed(a, w, tau, flip, k_true=k),
+        ref.binary_matmul_bn_sign_packed_ref(a, w, tau, flip, k))
+
+
+@pytest.mark.parametrize("m,c", [(2, 2048), (128, 1024)])
+def test_bn_sign_pack_at_shard_widths(dev, m, c):
+    gen = torch.Generator().manual_seed(m + c)
+    x = torch.randint(-99, 99, (m, c), generator=gen,
+                      dtype=torch.int32).to(dev)
+    tau, flip = _bn(gen, c, 99, dev)
+    assert fe.bn_sign_aligned(c, x.data_ptr())
+    assert torch.equal(fe.bn_sign_pack(x, tau, flip),
+                       ref.bn_sign_pack_ref(x, tau, flip))
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4), (4, 1)])
+def test_sharded_forward_on_one_card(dev, shape):
+    """Every position of the mesh on the one card: the sharded BCNN's
+    launches are each position's, its outputs the unsharded forward's."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_host_mesh
+    spec = cnn.BCNNSpec(input_hw=(16, 16),
+                        stages=(cnn.ConvStage(128), cnn.ConvStage(64, True)),
+                        dense=(256, 10))
+    gen = torch.Generator().manual_seed(0)
+    packed = cnn.pack_bcnn(cnn.init_bcnn(gen, spec), spec)
+    x = torch.randint(0, 256, (8, 16, 16, 3), generator=gen,
+                      dtype=torch.uint8)
+    fwd = sh.make_sharded_forward(packed, make_host_mesh(*shape))
+    ops.reset_launch_counts()
+    got = fwd.forward_int(x)
+    torch.cuda.synchronize()
+    n = shape[0] * shape[1]
+    stack = ({"dense_stack": n} if shape[1] == 1
+             else {"xnor_gemm_bn_sign": n})
+    assert {k: v for k, v in ops.launch_counts().items() if v} == {
+        "bitplane_conv_bn_sign": n, "conv_bn_sign": n, "xnor_gemm": n,
+        **stack}
+    assert torch.equal(got, cnn.bcnn_forward_packed_int(packed, x.to(dev)))

@@ -35,11 +35,19 @@ def test_port_imports_no_jax_and_no_reference():
         capture_output=True, text=True, env=env, timeout=300, check=True)
     names, leaked = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(names) >= 10
-    # the serving slice's subpackages are walked too
+    # the serving slice's subpackages are walked too, and the sharding,
+    # checkpoint and supervisor slice's
     assert {"repro_torch.telemetry", "repro_torch.telemetry.metrics",
             "repro_torch.telemetry.trace", "repro_torch.train.serve",
             "repro_torch.runtime.faults",
             "repro_torch.launch.serve"} <= set(names)
+    assert {"repro_torch.distributed", "repro_torch.distributed.sharding",
+            "repro_torch.distributed.verify_sharded",
+            "repro_torch.checkpoint", "repro_torch.checkpoint.checkpointer",
+            "repro_torch.checkpoint.packed", "repro_torch.launch.mesh",
+            "repro_torch.runtime.elastic",
+            "repro_torch.runtime.fault_tolerance",
+            "repro_torch.runtime.supervisor", "repro_torch.tree"} <= set(names)
     assert leaked == []
 
 

@@ -473,7 +473,7 @@ def test_register_validation(models):
                      model.torch_reg["spec"], kind="mlp")
     with pytest.raises(RuntimeError, match="no model"):
         srv.submit(np.zeros((784,), np.uint8))
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+    with pytest.raises(TypeError, match="Mesh"):
         srv.register("m", **model.torch_reg, mesh=(2, 2))
     with pytest.raises(ValueError, match="dense_stack"):
         srv.register("m", **model.torch_reg, dense_stack="bogus")
