@@ -71,7 +71,26 @@ Phases, each printing its lines:
    launches to the sharded forward's at its bucket); the chaos drill
    (``launch.serve.run_chaos``) on ``BCNNSpec()``, a (4, 2) mesh
    degrading 8 -> 4 -> 2 from a packed checkpoint, every invariant held;
-   packed-checkpoint save and restore of both networks (ms, MB).
+   packed-checkpoint save and restore of both networks (ms, MB);
+8. the model zoo (``models/model.py``, ``train/serve.py``'s
+   ``BatchedServer``), each run with the launch counts set to 0 just
+   before it and read just after, and held to the same run on the plain
+   route (``quant.backend = 'torch'``: K5's and K4's plain versions on the
+   same card; only the packed dots differ between the routes, and they
+   are integers, so everything is held equal): gemma2-9b at its published
+   width and depth in ``binary`` mode (42 layers, float32 weights made on
+   the card from seed 0, packed by ``maybe_pack_tree``, the float tree
+   freed), ``make_prefill_step`` at (8, 16) (128 rows: K5 + K4) and
+   (1, 512) (the unpack route), each also timed on the strategy AUTO
+   does not take there, one decode step (K5 = K4 = 294, nothing else),
+   one at the end of a 4096-position cache, ``BatchedServer`` on 8
+   requests over 4 slots, K5 and K4 at layer 0's decode and prefill
+   shapes beside their library calls (CUDA-graph replays);
+   mamba2-1.3b (prefill (2, 512), 8 decode steps) and whisper-base
+   (encode 1500 frames, 8 decode steps) at their published widths; every
+   reduced registry config in each mode (``logits_fn``, ``prefill``, 3
+   decode steps); the packed binary LM on every reduced config, stage by
+   stage.
 
 Every kernel is held to its plain version exactly, but for the attention
 kernel (K8), whose float softmax is held within rtol = atol = 2e-5 (the
@@ -1387,11 +1406,15 @@ def randomize_bn(bns, gen) -> None:
         bn["var"] = 0.5 + 1.5 * torch.rand(c, generator=gen)
 
 
-def kernel_table(calls, rates, kernel_reps, plain_reps):
+def kernel_table(calls, rates, kernel_reps, plain_reps, timer=None):
     """Per kernel: summed time, plain time, bound and library time over its
     launches in one run of a path (each call checked bit-exact on the
-    way; that plain call is the warm-up of its timing)."""
+    way; that plain call is the warm-up of its timing).  ``timer`` times
+    the kernel and the library calls: :func:`time_ms` by default,
+    :func:`graph_ms` where launches too small for the host to keep up
+    with would time the host."""
     import torch
+    timer = timer or time_ms
     rows = {}
     for c in calls:
         got, want = c.kernel(), c.plain()
@@ -1406,7 +1429,7 @@ def kernel_table(calls, rates, kernel_reps, plain_reps):
                                check_call(c.name, c, got, want))
         del got
         r["launches_per_forward"] += 1
-        r["ms"] += time_ms(c.kernel, kernel_reps)
+        r["ms"] += timer(c.kernel, kernel_reps)
         r["plain_ms"] += time_ms(c.plain, plain_reps, warmup=0)
         r["bytes"] += c.nbytes
         r["word_ops"] += c.word_ops
@@ -1418,11 +1441,11 @@ def kernel_table(calls, rates, kernel_reps, plain_reps):
         if c.library is None or r["library_ms"] is None:
             r["library_ms"] = None
         else:
-            r["library_ms"] += time_ms(c.library, kernel_reps)
+            r["library_ms"] += timer(c.library, kernel_reps)
         if c.also is None or r["also_ms"] is None:
             r["also_ms"] = None
         else:
-            r["also_ms"] += time_ms(c.also, kernel_reps)
+            r["also_ms"] += timer(c.also, kernel_reps)
     for r in rows.values():
         bound_of(r, rates)
     return rows
@@ -2101,6 +2124,490 @@ def checkpoint_times(what, packed, dev) -> None:
         for k, v in times.items()) + "; restored words equal the saved ones")
 
 
+# Phase 8: the model zoo (``models/model.py``) on the card.  gemma2-9b at
+# its published width and depth in binary mode, served through
+# ``BatchedServer`` (``examples/serve_binary_lm.py``'s mix: prompts of
+# 8-10 ids, 8-9 new tokens each, 4 slots) and prefilled through
+# ``make_prefill_step`` on both sides of the AUTO rule's 256 rows;
+# mamba2-1.3b and whisper-base at their published widths; every reduced
+# registry config in each mode; the packed LM on every reduced config.
+# Each run is held to the same run on the plain route (``backend
+# 'torch'``: the plain versions of K5 and K4 on the same card).
+ZOO_LM = "gemma2-9b"
+ZOO_SLOTS, ZOO_MAX_LEN, ZOO_REQUESTS = 4, 64, 8
+ZOO_PROMPT_LEN, ZOO_MAX_NEW = 8, 8
+ZOO_PREFILL = ((8, 16), (1, 512))
+ZOO_LONG = 4096            # gemma2-9b's window: one decode step at its end
+ZOO_SSM = ("mamba2-1.3b", (2, 512), 8)         # prefill (B, S), decode steps
+ZOO_AUDIO = ("whisper-base", 2, 1500, 8)       # batch, frames, decode steps
+ZOO_REDUCED = dict(batch=2, seq=12, max_len=16, steps=3)
+
+
+def zoo_plain(cfg):
+    """The same config on the plain route: the packed linears' K5 and K4
+    run their plain PyTorch versions (``quant.backend = 'torch'``)."""
+    import dataclasses
+    return dataclasses.replace(cfg, quant=dataclasses.replace(
+        cfg.quant, backend="torch"))
+
+
+def zoo_strategy(cfg, strategy):
+    """The same config with every packed linear on one ``GemmStrategy``
+    whatever its rows (``AUTO`` picks by the rows)."""
+    import dataclasses
+    return dataclasses.replace(cfg, quant=dataclasses.replace(
+        cfg.quant, strategy=strategy))
+
+
+def zoo_decode_pair(drv, what, packed, cfg, tok, cache, idx, expect):
+    """One decode step on the kernel route and on the plain route, each on
+    its own copy of ``cache`` (a step writes into the cache it is given);
+    logits and caches held equal.  Returns the plain route's (logits,
+    cache); ``cache`` itself is that route's."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+    kc = tree_map(torch.clone, cache)
+    got = drv.run(what, lambda: M.decode_step(packed, cfg, tok, kc, idx),
+                  expect)
+    want = M.decode_step(packed, zoo_plain(cfg), tok, cache, idx)
+    check_tree_equal(what, got, want)
+    return want
+
+
+def check_tree_equal(what, got, want) -> None:
+    """Every leaf of two trees of tensors (or None) equal."""
+    from repro_torch.tree import leaves_with_path
+    gl, wl = list(leaves_with_path(got)), list(leaves_with_path(want))
+    if [p for p, _ in gl] != [p for p, _ in wl]:
+        raise AssertionError(f"{what}: trees differ in layout")
+    for (path, g), (_, w) in zip(gl, wl):
+        check_equal(f"{what} {path}", g, w)
+
+
+def zoo_step_launches(n):
+    """The launches of a call through ``n`` packed linears on the XNOR
+    route: K5 and K4 once each per linear, nothing else."""
+    return {"bitpack": n, "xnor_gemm": n} if n else {}
+
+
+def _ffn_linears(cfg) -> int:
+    """Packed linears of the FFN (or MoE) sub-block after a layer: the
+    dense FFN's (gate,) up and down; the MoE's router and its shared
+    expert's FFN (the experts' weights stay unpacked, as the reference's
+    ``maybe_pack_tree`` leaves them)."""
+    from repro_torch.models import ffn
+    n_ffn = 3 if ffn.is_gated(cfg.ffn_type) else 2
+    if cfg.moe is not None:
+        return 1 + (n_ffn if cfg.moe.shared_experts else 0)
+    return n_ffn if cfg.d_ff > 0 else 0
+
+
+def packed_linears(cfg) -> int:
+    """Packed linears one call of the decoder goes through in ``binary``
+    mode, each called once whatever the rows: per attention layer q, k, v
+    and o, per RG-LRU block its five, per Mamba-2 block in_proj and
+    out_proj, the FFN sub-block's (:func:`_ffn_linears`); the whisper
+    decoder's self-attention, cross q and o (its cross K/V come from
+    ``precompute_cross_kv``); the untied head."""
+    per_kind = {"global": 4, "local": 4, "rec": 5, "ssm": 2}
+    n = 0
+    for i in range(cfg.num_layers):
+        kind = cfg.layer_kind(i)
+        n += per_kind[kind] + (0 if kind == "ssm" else _ffn_linears(cfg))
+        if cfg.encoder_layers:
+            n += 2
+    return n + (0 if cfg.tie_embeddings else 1)
+
+
+def zoo_linear_inputs(fn):
+    """Run ``fn`` recording (x, w_packed) of every packed linear call."""
+    from repro_torch.models import linear as LN
+    seen = []
+    orig = LN._apply_packed
+
+    def record(params, x, quant, dtype):
+        seen.append((x, params["w_packed"]))
+        return orig(params, x, quant, dtype)
+
+    LN._apply_packed = record
+    try:
+        fn()
+    finally:
+        LN._apply_packed = orig
+    return seen
+
+
+def zoo_kernel_rows(what, seen, rates):
+    """K5 and K4 at the shapes the path gave the first layer's packed
+    linears (the inputs recorded), beside K4's library calls, each timed
+    as 20 calls replayed from one CUDA graph: the card's time, not the
+    host's launch time."""
+    from repro_torch.core import binarize as B
+    calls = []
+    for x, w in seen:
+        k = x.shape[-1]
+        x2 = x.reshape(-1, k).float().contiguous()
+        calls.append(bitpack_call(x2))
+        calls.append(gemm_call(B.pack_bits(x2), w, k))
+    rows = kernel_table(calls, rates, kernel_reps=20, plain_reps=2,
+                        timer=graph_ms)
+    log_table(what, rows)
+    return rows
+
+
+def zoo_full_lm(drv, dev, rates) -> dict:
+    """Phase 8a: gemma2-9b at full width and depth in binary mode."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import quantize as Q
+    from repro_torch.models import linear as LN
+    from repro_torch.models import model as M
+    from repro_torch.train import serve as SV
+    from repro_torch.tree import leaves_with_path, tree_bytes, tree_map
+    cfg = configs.get_config(ZOO_LM, quant="binary")
+    plain = zoo_plain(cfg)
+    t0 = time.perf_counter()
+    params = M.init_model(torch.Generator(device=dev).manual_seed(0), cfg)
+    n_float = sum(t.numel() for _, t in leaves_with_path(params))
+    float_bytes = tree_bytes(params["stack"])
+    packed = LN.maybe_pack_tree(params, cfg.quant)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"zoo {ZOO_LM} binary: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.head_dim}, {cfg.ffn_type} d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}: {n_float} float32 parameters made "
+        f"on the card from seed 0 and packed by maybe_pack_tree in "
+        f"{time.perf_counter() - t0:.1f} s; the stack {float_bytes} bytes "
+        f"float32 -> {tree_bytes(packed['stack'])} bytes packed "
+        f"({float_bytes / tree_bytes(packed['stack']):.4g}x); embedding "
+        f"{tree_bytes(packed['embed'])} bytes float32 (tied head)")
+    per_step = packed_linears(cfg)
+    if per_step != 7 * cfg.num_layers:
+        raise AssertionError(f"{per_step} packed linears a step")
+    expect = zoo_step_launches(per_step)
+    out = {"cfg": cfg}
+    gen = torch.Generator().manual_seed(1)
+    for b, s in ZOO_PREFILL:
+        toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen
+                             ).to(dev)
+        max_len = max(ZOO_MAX_LEN, s)
+        step = SV.make_prefill_step(cfg, max_len)
+        pstep = SV.make_prefill_step(plain, max_len)
+        xnor = b * s <= Q.XNOR_MAX_ROWS
+        got, gcache = drv.run(f"zoo {ZOO_LM} prefill ({b}, {s})",
+                              lambda: step(packed, {"tokens": toks}),
+                              expect if xnor else {})
+        want, wcache = pstep(packed, {"tokens": toks})
+        check_equal(f"zoo {ZOO_LM} prefill ({b}, {s}) logits", got, want)
+        check_tree_equal(f"zoo {ZOO_LM} prefill ({b}, {s}) cache", gcache,
+                         wcache)
+        if got.shape != (b, 1, cfg.vocab_size) or \
+                not bool(torch.isfinite(got.float()).all()):
+            raise AssertionError(f"zoo prefill ({b}, {s}): logits")
+        del gcache, wcache
+        ms = time_ms(lambda: step(packed, {"tokens": toks}), reps=3)
+        plain_ms = time_ms(lambda: pstep(packed, {"tokens": toks}), reps=1)
+        # the strategy AUTO does not take at these rows, on the same input
+        other = Q.GemmStrategy.MXU_UNPACK if xnor else Q.GemmStrategy.VPU_XNOR
+        ostep = SV.make_prefill_step(zoo_strategy(cfg, other), max_len)
+        ogot, ocache = drv.run(
+            f"zoo {ZOO_LM} prefill ({b}, {s}) on {other.value}",
+            lambda: ostep(packed, {"tokens": toks}), {} if xnor else expect)
+        check_equal(f"zoo {ZOO_LM} prefill ({b}, {s}) logits, {other.value} "
+                    f"against AUTO", ogot, got)
+        del ocache
+        other_ms = time_ms(lambda: ostep(packed, {"tokens": toks}), reps=3)
+        routes = ("XNOR route (K5 + K4)", "unpack route")
+        log(f"zoo {ZOO_LM} prefill ({b}, {s}), {b * s} rows, AUTO takes the "
+            f"{routes[0] if xnor else routes[1]}: logits and every cache "
+            f"leaf equal the plain route's; {ms:.5g} ms "
+            f"({b * s / ms * 1e3:.6g} tokens/s), plain route {plain_ms:.5g} "
+            f"ms; the "
+            f"{routes[1] if xnor else routes[0]} ({other.value}) on the same "
+            f"tokens {other_ms:.5g} ms, logits equal")
+        out[b, s] = (ms, plain_ms, other_ms)
+        if xnor:
+            seen = zoo_linear_inputs(lambda: pstep(packed, {"tokens": toks}))
+            out["rows_prefill"] = zoo_kernel_rows(
+                f"zoo {ZOO_LM} prefill ({b}, {s}) layer 0, x{cfg.num_layers}"
+                f" per prefill", seen[:7], rates)
+
+    # one decode step: launches, equality, time
+    toks = torch.randint(0, cfg.vocab_size, (ZOO_SLOTS, 8), generator=gen
+                         ).to(dev)
+    _, cache = SV.make_prefill_step(cfg, ZOO_MAX_LEN)(packed,
+                                                      {"tokens": toks})
+    tok = toks[:, :1]
+    dstep, pdstep = SV.make_decode_step(cfg), SV.make_decode_step(plain)
+    zoo_decode_pair(drv, f"zoo {ZOO_LM} decode step", packed, cfg, tok,
+                    cache, 8, expect)
+    step_ms = time_ms(lambda: dstep(packed, cache, tok, 8), reps=5)
+    plain_step_ms = time_ms(lambda: pdstep(packed, cache, tok, 8), reps=1)
+    log(f"zoo {ZOO_LM} decode step ({ZOO_SLOTS} slots): launches {expect} "
+        f"(K5 = K4 = 7 x {cfg.num_layers}), logits and cache equal the "
+        f"plain route's; {step_ms:.5g} ms a step, plain route "
+        f"{plain_step_ms:.5g} ms")
+    seen = zoo_linear_inputs(lambda: pdstep(packed, cache, tok, 8))
+    out["rows_decode"] = zoo_kernel_rows(
+        f"zoo {ZOO_LM} decode M={ZOO_SLOTS} layer 0, x{cfg.num_layers} per "
+        f"step", seen[:7], rates)
+    out["step_ms"], out["plain_step_ms"] = step_ms, plain_step_ms
+    del cache
+
+    # one decode step at the end of the model's own window: a cache of
+    # ZOO_LONG positions, random K/V, the step at the last one reads all
+    idx = ZOO_LONG - 1
+    cache = M.init_cache(packed, cfg, ZOO_SLOTS, ZOO_LONG)
+    g = torch.Generator(device=dev).manual_seed(8)
+    for _, t in leaves_with_path(cache):
+        t.copy_(torch.randn(t.shape, generator=g, device=dev))
+    zoo_decode_pair(drv, f"zoo {ZOO_LM} decode step at {idx} of {ZOO_LONG}",
+                    packed, cfg, tok, cache, idx, expect)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    long_ms = time_ms(lambda: dstep(packed, cache, tok, idx), reps=3)
+    extra = torch.cuda.max_memory_allocated() - base
+    copy_ms = time_ms(lambda: dstep(packed, tree_map(torch.clone, cache),
+                                    tok, idx), reps=3)
+    log(f"zoo {ZOO_LM} decode step at position {idx} of a {ZOO_LONG}-"
+        f"position cache ({ZOO_SLOTS} slots, {tree_bytes(cache)} bytes, "
+        f"written in place): launches {expect}, logits and cache equal the "
+        f"plain route's; {long_ms:.5g} ms a step, {extra} bytes allocated "
+        f"beside the cache at the step's peak; on a copy of the cache "
+        f"(what keeping the old one costs) {copy_ms:.5g} ms")
+    out["long"] = (long_ms, extra, tree_bytes(cache), copy_ms)
+    del cache
+
+    # BatchedServer, both routes, the example's mix
+    served = {}
+    for route, c in (("kernel", cfg), ("plain", plain)):
+        srv = SV.BatchedServer(c, packed, batch_slots=ZOO_SLOTS,
+                               max_len=ZOO_MAX_LEN)
+        if route == "kernel":
+            inner = srv.decode
+            srv.decode = lambda *a, inner=inner: drv.run(
+                f"zoo {ZOO_LM} served step", lambda: inner(*a), expect)
+        rgen = torch.Generator().manual_seed(2)
+        reqs = [SV.Request(rid=i, prompt=torch.randint(
+            0, cfg.vocab_size, (ZOO_PROMPT_LEN + i % 3,), generator=rgen),
+            max_new=ZOO_MAX_NEW + i % 2) for i in range(ZOO_REQUESTS)]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        done = srv.submit_and_run(reqs)
+        torch.cuda.synchronize()
+        served[route] = (done, time.perf_counter() - t, srv.idx)
+    (kdone, kwall, ksteps), (pdone, pwall, _) = served["kernel"], \
+        served["plain"]
+    if [(r.rid, r.out, r.truncated) for r in kdone] != \
+            [(r.rid, r.out, r.truncated) for r in pdone]:
+        raise AssertionError("zoo served tokens differ between the routes")
+    if any(r.truncated for r in kdone) or len(kdone) != ZOO_REQUESTS:
+        raise AssertionError("zoo served: a request was truncated or lost")
+    tokens = sum(len(r.out) for r in kdone)
+    log(f"zoo {ZOO_LM} served through BatchedServer: {ZOO_REQUESTS} "
+        f"requests (prompts {ZOO_PROMPT_LEN}-{ZOO_PROMPT_LEN + 2} ids, "
+        f"max_new {ZOO_MAX_NEW}-{ZOO_MAX_NEW + 1}), {ZOO_SLOTS} slots, "
+        f"max_len {ZOO_MAX_LEN}: {ksteps} decode steps, {tokens} tokens "
+        f"in {kwall * 1e3:.5g} ms ({tokens / kwall:.5g} tokens/s, "
+        f"{kwall / ksteps * 1e3:.5g} ms a step), each step's launches "
+        f"{expect}; plain route {pwall * 1e3:.5g} ms; every request's "
+        f"tokens equal on both routes: "
+        + "; ".join(f"req{r.rid} {r.out}" for r in kdone[:3]))
+    out["served"] = (tokens, kwall, ksteps, pwall)
+    del packed
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_pair(drv, what, fn_kernel, fn_plain, expect):
+    """Run a zoo function on both routes; the kernel route's launches held
+    to ``expect``; the outputs (trees) equal."""
+    got = drv.run(what, fn_kernel, expect)
+    want = fn_plain()
+    check_tree_equal(what, got, want)
+    return got
+
+
+def zoo_published(drv, dev) -> None:
+    """Phase 8b: mamba2-1.3b and whisper-base at their published widths in
+    binary mode, kernel route against plain route."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import quantize as Q
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import linear as LN
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_bytes
+    name, (b, s), steps = ZOO_SSM
+    cfg = configs.get_config(name, quant="binary")
+    plain = zoo_plain(cfg)
+    t0 = time.perf_counter()
+    params = M.init_model(torch.Generator(device=dev).manual_seed(0), cfg)
+    fbytes = tree_bytes(params["stack"])
+    packed = LN.maybe_pack_tree(params, cfg.quant)
+    del params
+    gen = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen).to(dev)
+    n = packed_linears(cfg)
+    xnor = b * s <= Q.XNOR_MAX_ROWS
+    t1 = time.perf_counter()
+    logits, cache = zoo_pair(
+        drv, f"zoo {name} prefill ({b}, {s})",
+        lambda: M.prefill(packed, cfg, {"tokens": toks}, s + steps),
+        lambda: M.prefill(packed, plain, {"tokens": toks}, s + steps),
+        zoo_step_launches(n if xnor else 0))
+    t_prefill = time.perf_counter() - t1
+    t_made = t1 - t0
+    t1 = time.perf_counter()
+    for i in range(steps):
+        tok = logits[:, -1].float().argmax(-1, keepdim=True)
+        logits, cache = zoo_decode_pair(drv, f"zoo {name} decode {i}",
+                                        packed, cfg, tok, cache, s + i,
+                                        zoo_step_launches(n))
+    torch.cuda.synchronize()
+    t_decode = (time.perf_counter() - t1) / steps
+    log(f"zoo {name} binary at its published widths ({cfg.num_layers} "
+        f"layers, d_model {cfg.d_model}, d_state {cfg.ssm.d_state}, "
+        f"stack {fbytes} -> {tree_bytes(packed['stack'])} bytes, made in "
+        f"{t_made:.1f} s): prefill ({b}, {s}) on the "
+        f"{'XNOR' if xnor else 'unpack'} route, {steps} decode steps with "
+        f"K5 = K4 = {n} a step; logits and caches equal the plain route's; "
+        f"prefill {t_prefill * 1e3:.5g} ms, a decode step (both routes, "
+        f"host clock) {t_decode * 1e3:.5g} ms")
+    del packed, cache
+    name, b, frames, steps = ZOO_AUDIO
+    cfg = configs.get_config(name, quant="binary")
+    plain = zoo_plain(cfg)
+    params = M.init_model(torch.Generator(device=dev).manual_seed(0), cfg)
+    packed = LN.maybe_pack_tree(params, cfg.quant)
+    del params
+    emb = torch.randn((b, frames, cfg.d_model), generator=gen).to(dev)
+    t1 = time.perf_counter()
+    enc = zoo_pair(drv, f"zoo {name} encode ({b}, {frames})",
+                   lambda: ED.encode(packed["encdec"], cfg, emb),
+                   lambda: ED.encode(packed["encdec"], plain, emb), {})
+    cache = M.init_cache(packed, cfg, b, steps, enc_len=frames)
+    cache["cross"] = zoo_pair(
+        drv, f"zoo {name} cross K/V",
+        lambda: ED.precompute_cross_kv(packed["encdec"], cfg, enc),
+        lambda: ED.precompute_cross_kv(packed["encdec"], plain, enc), {})
+    t_enc = time.perf_counter() - t1
+    n = packed_linears(cfg)
+    tok = torch.zeros((b, 1), dtype=torch.int64, device=dev)
+    t1 = time.perf_counter()
+    for i in range(steps):
+        logits, cache = zoo_decode_pair(drv, f"zoo {name} decode {i}",
+                                        packed, cfg, tok, cache, i,
+                                        zoo_step_launches(n))
+        tok = logits[:, -1].float().argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    log(f"zoo {name} binary at its published widths ({cfg.encoder_layers} "
+        f"+ {cfg.num_layers} layers, d_model {cfg.d_model}): encode {frames}"
+        f" frame embeddings x{b} on the unpack route and the cross K/V "
+        f"({t_enc * 1e3:.5g} ms), {steps} decode steps with K5 = K4 = {n} a "
+        f"step ({(time.perf_counter() - t1) / steps * 1e3:.5g} ms a step, "
+        f"both routes); equal to the plain route")
+    del packed, cache, enc
+    torch.cuda.empty_cache()
+
+
+def zoo_reduced(drv, dev) -> None:
+    """Phase 8c: every reduced registry config in each mode, forward,
+    prefill and decode, kernel route against plain route; then the packed
+    LM on every reduced config against its plain path, stage by stage."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import linear as LN
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tf
+    r = ZOO_REDUCED
+    b, s = r["batch"], r["seq"]
+    held = []
+    for name in configs.list_configs():
+        for mode in ("float", "binary_weight", "binary"):
+            cfg = configs.get_config(name, quant=mode, reduced=True)
+            plain = zoo_plain(cfg)
+            gen = torch.Generator(device=dev).manual_seed(4)
+            params = M.init_model(gen, cfg)
+            packed = LN.maybe_pack_tree(params, cfg.quant)
+            cpu = torch.Generator().manual_seed(5)
+            batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                             generator=cpu).to(dev)}
+            if cfg.encoder_layers:
+                batch["enc_embeds"] = torch.randn(
+                    (b, 10, cfg.d_model), generator=cpu).to(dev)
+            n = packed_linears(cfg) if mode == "binary" else 0
+            what = f"zoo {name} {mode}"
+            zoo_pair(drv, f"{what} logits_fn",
+                     lambda: M.logits_fn(packed, cfg, batch),
+                     lambda: M.logits_fn(packed, plain, batch),
+                     zoo_forward_launches(cfg, mode))
+            logits, cache = zoo_pair(
+                drv, f"{what} prefill",
+                lambda: M.prefill(packed, cfg, batch, r["max_len"]),
+                lambda: M.prefill(packed, plain, batch, r["max_len"]),
+                zoo_forward_launches(cfg, mode))
+            if cfg.encoder_layers:
+                enc = ED.encode(packed["encdec"], cfg, batch["enc_embeds"])
+                cache = M.init_cache(packed, cfg, b, r["max_len"],
+                                     enc_len=10)
+                cache["cross"] = ED.precompute_cross_kv(packed["encdec"],
+                                                        cfg, enc)
+            for i in range(r["steps"]):
+                tok = logits[:, -1].float().argmax(-1, keepdim=True)
+                logits, cache = zoo_decode_pair(
+                    drv, f"{what} decode {i}", packed, cfg, tok, cache,
+                    s + i, zoo_step_launches(n))
+            if not bool(torch.isfinite(logits.float()).all()):
+                raise AssertionError(f"{what}: logits not finite")
+            held.append(f"{name}/{mode}")
+    log(f"zoo reduced: logits_fn, prefill and {r['steps']} decode steps at "
+        f"(B, S) = ({b}, {s}) equal on the kernel and the plain route for "
+        f"{len(held)} config/mode pairs (binary: K5 = K4 = one a packed "
+        f"linear a call; float and binary_weight: no kernel)")
+    flips = {}
+    for name in configs.list_configs():
+        cfg = configs.get_config(name, reduced=True)
+        spec = configs.LMSpec.from_arch(cfg)
+        params = tf.init_binary_lm(torch.Generator(device=dev).manual_seed(6),
+                                   spec)
+        packed = tf.pack_transformer(params, spec, max_len=s, device=dev)
+        toks = torch.randint(0, spec.vocab_size, (b, s),
+                             generator=torch.Generator().manual_seed(7)
+                             ).to(dev)
+        L = spec.num_layers
+        got = drv.run(f"zoo packed lm {name}",
+                      lambda: tf.transformer_forward_packed(packed, toks),
+                      {"bitpack": 5 * L + 1, "xnor_gemm": 5 * L + 1,
+                       "xnor_gemm_bn_sign": L, "binary_attention": L})
+        flips[name], want = lm_stage_check(f"zoo packed lm {name}", packed,
+                                           toks)
+        if flips[name] == 0:
+            check_equal(f"zoo packed lm {name} logits", got, want)
+    log(f"zoo packed lm on every reduced registry config, stage by stage "
+        f"against the plain path (attention bits flipped near 0: {flips})")
+
+
+def zoo_forward_launches(cfg, mode):
+    """Launches of one full-sequence call (``logits_fn`` or ``prefill``) at
+    the reduced (B, S), on the XNOR route (B*S <= 256): K5 and K4 once per
+    packed linear; the encoder-decoder adds its encoder's layers and its
+    decoder's cross K and V."""
+    if mode != "binary":
+        return {}
+    n = packed_linears(cfg)
+    if cfg.encoder_layers:
+        n += cfg.encoder_layers * (4 + _ffn_linears(cfg))
+        n += 2 * cfg.num_layers
+    return zoo_step_launches(n)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2331,6 +2838,17 @@ def main() -> int:
     chaos_drill(bparams, bspec, dev)
     checkpoint_times("bcnn", bcnn, dev)
     checkpoint_times("bmlp", bmlp, dev)
+
+    # 8. the model zoo: gemma2-9b served at full width, two published
+    # widths, every reduced config and mode, the packed LM on each
+    del lm, lm_tokens
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    zoo_full_lm(drv, dev, rates)
+    zoo_published(drv, dev)
+    zoo_reduced(drv, dev)
+    log(f"zoo: {time.perf_counter() - t0:.1f} s; launches in all, phases "
+        f"4-8 {launches}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     kernels = []

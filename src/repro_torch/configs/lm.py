@@ -1,11 +1,10 @@
-"""The language-model configurations that the packed binary LM reads.
+"""The configuration that the packed binary LM reads.
 
-``LMSpec`` holds the fields of the reference's ``ArchConfig``
-(``src/repro/configs/base.py``) that ``models/transformer.py`` uses, and
-nothing else: the port imports nothing of the reference, not even its
-configs.  ``reduced()`` makes the same field changes as
-``ArchConfig.reduced()``, so a reduced spec here and a reduced config
-there have the same shapes.
+``LMSpec`` holds the fields of an ``ArchConfig`` (``configs/base.py``)
+that the packed half of ``models/transformer.py`` uses, and nothing else.
+``reduced()`` makes the same field changes as ``ArchConfig.reduced()``,
+so a reduced spec and a reduced config have the same shapes, and
+:meth:`LMSpec.from_arch` gives the packed LM any registry config.
 """
 from __future__ import annotations
 
@@ -28,6 +27,19 @@ class LMSpec:
     # The expert width of an MoE config, which the packed LM's FFN takes
     # when ``d_ff`` is 0 (``models.transformer._lm_d_ff``).
     moe_d_ff_expert: int | None = None
+
+    @classmethod
+    def from_arch(cls, cfg) -> "LMSpec":
+        """The spec of an ``ArchConfig`` (this package's, or any object
+        with its fields)."""
+        return cls(
+            name=cfg.name, num_layers=cfg.num_layers, d_model=cfg.d_model,
+            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+            head_dim=cfg.head_dim, d_ff=cfg.d_ff, vocab_size=cfg.vocab_size,
+            attention_pattern=tuple(cfg.attention_pattern),
+            window_size=cfg.window_size, attn_softcap=cfg.attn_softcap,
+            moe_d_ff_expert=(None if cfg.moe is None
+                             else cfg.moe.d_ff_expert))
 
     @property
     def pattern_period(self) -> int:

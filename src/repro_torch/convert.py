@@ -8,10 +8,14 @@ neither JAX nor the reference.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from repro_torch.configs import LMSpec
+from repro_torch.configs import (ArchConfig, LMSpec, MoEConfig, RGLRUConfig,
+                                 SSMConfig)
+from repro_torch.core.quantize import GemmStrategy, QuantConfig, QuantMode
 from repro_torch.models import cnn
 
 
@@ -19,7 +23,8 @@ def params_to_torch(tree):
     """A reference parameter tree (dicts/lists of arrays, e.g. the output of
     ``repro.models.cnn.init_bcnn`` or ``init_bmlp``, or of
     ``repro.models.transformer.init_binary_lm``) -> the same tree of float32
-    tensors."""
+    tensors.  Every leaf is cast, so packed words and the model zoo's
+    tuples go through :func:`tree_to_torch` instead."""
     if isinstance(tree, dict):
         return {k: params_to_torch(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -56,15 +61,53 @@ def bmlp_spec(ref_spec) -> cnn.BMLPSpec:
                         nbits_input=ref_spec.nbits_input)
 
 
-def lm_spec(ref_cfg) -> LMSpec:
-    """The port's ``LMSpec`` with the fields of a reference ``ArchConfig``
-    that the packed LM reads."""
-    return LMSpec(
-        name=ref_cfg.name, num_layers=ref_cfg.num_layers,
-        d_model=ref_cfg.d_model, num_heads=ref_cfg.num_heads,
-        num_kv_heads=ref_cfg.num_kv_heads, head_dim=ref_cfg.head_dim,
-        d_ff=ref_cfg.d_ff, vocab_size=ref_cfg.vocab_size,
-        attention_pattern=tuple(ref_cfg.attention_pattern),
-        window_size=ref_cfg.window_size, attn_softcap=ref_cfg.attn_softcap,
-        moe_d_ff_expert=(None if ref_cfg.moe is None
-                         else ref_cfg.moe.d_ff_expert))
+def lm_spec(cfg) -> LMSpec:
+    """The port's ``LMSpec`` with the fields of an ``ArchConfig`` (the
+    reference's or the port's) that the packed LM reads."""
+    return LMSpec.from_arch(cfg)
+
+
+def arch_config(ref_cfg) -> ArchConfig:
+    """The port's ``ArchConfig`` with every field of a reference one."""
+    fields = {f.name: getattr(ref_cfg, f.name)
+              for f in dataclasses.fields(ArchConfig)}
+    for name, kind in (("moe", MoEConfig), ("ssm", SSMConfig),
+                       ("rglru", RGLRUConfig)):
+        if fields[name] is not None:
+            fields[name] = kind(**dataclasses.asdict(fields[name]))
+    q = ref_cfg.quant
+    fields["quant"] = QuantConfig(
+        mode=QuantMode(q.mode.value), strategy=GemmStrategy(q.strategy.value))
+    return ArchConfig(**fields)
+
+
+def _leaf_to_torch(a, float_dtype):
+    arr = np.asarray(a)
+    if arr.dtype == np.uint32:
+        return words_to_torch(arr)
+    if arr.dtype.kind == "f" or arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.array(arr, dtype=np.float32))
+        if float_dtype is None:
+            float_dtype = (torch.bfloat16 if arr.dtype.name == "bfloat16"
+                           else torch.float32)
+        return t.to(float_dtype)
+    return torch.from_numpy(np.array(arr))
+
+
+def tree_to_torch(tree, *, float_dtype=torch.float32):
+    """A reference model tree (the output of ``repro.models.model.
+    init_model``, of ``linear.maybe_pack_tree``, or a decode cache) -> the
+    same tree of tensors: dicts, lists and tuples keep their kinds,
+    ``uint32`` packed words become int32 words (:func:`words_to_torch`),
+    other integer leaves keep their dtype, float leaves become
+    ``float_dtype`` (``None`` keeps bfloat16 and makes every other float
+    float32).  ``None`` stays ``None``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_to_torch(v, float_dtype=float_dtype)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [tree_to_torch(v, float_dtype=float_dtype) for v in tree]
+        return out if isinstance(tree, list) else tuple(out)
+    return _leaf_to_torch(tree, float_dtype)

@@ -49,6 +49,29 @@ def sign_pm1(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 0, 1.0, -1.0).to(x.dtype)
 
 
+class _BinarizeSTE(torch.autograd.Function):
+    """sign() forward, hard-tanh straight-through estimator backward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return sign_pm1(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x.abs() <= 1.0, g, torch.zeros_like(g))
+
+
+def binarize_ste(x: torch.Tensor) -> torch.Tensor:
+    """sign() with the straight-through estimator backward (paper §4.4).
+
+    Forward: sign(x) in {-1,+1}.  Backward: the gradient passes where
+    |x| <= 1 and is zero elsewhere (Bengio et al. 2013 hard-tanh STE).
+    """
+    return _BinarizeSTE.apply(x)
+
+
 def to_words(w64: torch.Tensor) -> torch.Tensor:
     """Unsigned 32-bit values held in int64 -> int32 with the same bits."""
     w64 = w64 & _LOW32
@@ -86,6 +109,15 @@ def unpack_bits(packed: torch.Tensor, k: int,
     bits = (from_words(packed)[..., None] >> shifts) & 1
     bits = bits.reshape(*packed.shape[:-1], packed.shape[-1] * WORD_BITS)
     return (2 * bits[..., :k] - 1).to(dtype)
+
+
+def binary_dot_unpacked_mxu(x: torch.Tensor, w_packed: torch.Tensor, k: int,
+                            dtype=torch.bfloat16) -> torch.Tensor:
+    """The unpack route of a dot on packed weights: unpack ``w_packed``
+    (N, Kw) to ±1 in ``dtype`` and contract ``x`` (..., k), cast to
+    ``dtype``, with a matmul.  Returns (..., N) in ``dtype``."""
+    w = unpack_bits(w_packed, k, dtype=dtype)          # (N, k) ±1
+    return torch.matmul(x.to(dtype), w.T)
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:

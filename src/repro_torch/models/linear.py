@@ -1,0 +1,158 @@
+"""Quantization-aware linear maps: the paper's technique as an LM feature
+(the reference's ``models/linear.py``).
+
+A linear's params dict is either:
+
+* float form:   {"w": (d_in, d_out) float32}                (FLOAT, latent)
+* packed form:  {"w_packed": (d_out, ceil(d_in/32)) int32 words,
+                 "alpha": (d_out,) float32}                  (packed once)
+
+``apply_linear`` dispatches on ``QuantMode`` and ``GemmStrategy``:
+
+* FLOAT          a matmul in the activation dtype;
+* BINARY_WEIGHT  sign(W) times a per-output-channel scale alpha (XNOR-Net
+                 scaling), real activations: packed, the ±1 weights are
+                 unpacked and contracted by a matmul;
+* BINARY         sign activations too; packed, the XNOR route packs the
+                 activations with K5 (``kernels.ops.bitpack``) and
+                 contracts them with K4 (``kernels.ops.binary_matmul_packed``)
+                 on the backend ``quant.backend`` names, the unpack route
+                 contracts ±1 float32 operands with a matmul.  Both give the
+                 same integers.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import binarize as B
+from repro_torch.core.quantize import GemmStrategy, QuantConfig, QuantMode
+from repro_torch.kernels import ops as kops
+from repro_torch.models.cnn import _check_device
+from repro_torch.models.common import randn
+
+# Output rows of a weight packed at once: the packing widens bits to int64.
+_PACK_ROWS = 16384
+
+
+def init_linear(gen: torch.Generator, d_in: int, d_out: int, *,
+                scale: float | None = None) -> dict:
+    s = scale if scale is not None else d_in ** -0.5
+    return {"w": randn(gen, (d_in, d_out), s)}
+
+
+def row_mean(t: torch.Tensor) -> torch.Tensor:
+    """The float32 mean over the last axis, summed in the reference's
+    order: windows of 32 elements (the axis zero-padded on both sides,
+    the smaller half in front), each summed from its first element on,
+    then the window sums the same way until one is left, times
+    float32(1/K).  So ``alpha`` equals the reference's bit for bit."""
+    k = t.shape[-1]
+    t = t.to(torch.float32)
+    while t.shape[-1] > 1:
+        n = -(-t.shape[-1] // 32)
+        pad = n * 32 - t.shape[-1]
+        t = torch.nn.functional.pad(t, (pad // 2, pad - pad // 2))
+        t = t.reshape(*t.shape[:-1], n, 32)
+        acc = t[..., 0]
+        for j in range(1, 32):
+            acc = acc + t[..., j]
+        t = acc
+    return t[..., 0] * torch.tensor(1.0 / k, dtype=torch.float32,
+                                    device=t.device)
+
+
+def pack_rows(wt: torch.Tensor) -> torch.Tensor:
+    """``pack_bits`` of a (rows, K) matrix along K, a slice of rows at a
+    time (the 256000-row LM head would widen to 8 GB of int64 at once)."""
+    return torch.cat([B.pack_bits(wt[i:i + _PACK_ROWS])
+                      for i in range(0, wt.shape[0], _PACK_ROWS)])
+
+
+def pack_linear(params: dict) -> dict:
+    """One-time conversion to the packed inference form (paper C2).
+
+    Takes stacked weights too: (..., d_in, d_out) packs along d_in, one
+    matrix at a time.  The logical d_in is not stored; it is the trailing
+    dim of the activation at apply time."""
+    w = params["w"]
+    lead = w.shape[:-2]
+    mats = w.reshape(-1, *w.shape[-2:])
+    words, alphas = [], []
+    for m in mats:
+        wt = m.T                                       # (d_out, d_in)
+        alphas.append(row_mean(torch.abs(wt)))
+        words.append(pack_rows(wt))
+    return {"w_packed": torch.stack(words).reshape(*lead, *words[0].shape),
+            "alpha": torch.stack(alphas).reshape(*lead, w.shape[-1])}
+
+
+def is_packed(params: dict) -> bool:
+    return "w_packed" in params
+
+
+def apply_linear(params: dict, x: torch.Tensor, quant: QuantConfig, *,
+                 dtype=torch.bfloat16) -> torch.Tensor:
+    """y = x @ W under the quantization policy.  x: (..., d_in)."""
+    if is_packed(params):
+        return _apply_packed(params, x, quant, dtype)
+    w = params["w"]
+    if quant.mode == QuantMode.FLOAT:
+        return torch.matmul(x.to(dtype), w.to(dtype))
+    # latent-weight paths (STE)
+    wb = B.binarize_ste(w)
+    alpha = torch.mean(torch.abs(w), dim=0).detach()
+    if quant.mode == QuantMode.BINARY:
+        y = torch.matmul(B.binarize_ste(x.to(torch.float32)), wb)
+    else:                                              # BINARY_WEIGHT
+        y = torch.matmul(x.to(torch.float32), wb)
+    return (y * alpha).to(dtype)
+
+
+def _apply_packed(params: dict, x: torch.Tensor, quant: QuantConfig,
+                  dtype) -> torch.Tensor:
+    k = x.shape[-1]                                    # logical d_in
+    alpha = params["alpha"]
+    m = 1
+    for s in x.shape[:-1]:
+        m *= s
+    strat = quant.strategy
+    if strat == GemmStrategy.AUTO:
+        strat = quant.resolve_strategy(m, alpha.shape[0], k)
+    if quant.mode == QuantMode.BINARY:
+        if strat == GemmStrategy.VPU_XNOR:
+            # the sign of x is packed as the sign of sign(x): bit = x >= 0
+            xp = kops.bitpack(x.to(torch.float32).reshape(m, k),
+                              backend=quant.backend)
+            y = kops.binary_matmul_packed(
+                xp, params["w_packed"], k_true=k,
+                backend=quant.backend).to(torch.float32)
+            y = y.reshape(*x.shape[:-1], -1)
+        else:
+            xb = B.sign_pm1(x.to(torch.float32))
+            y = B.binary_dot_unpacked_mxu(xb, params["w_packed"], k,
+                                          dtype=torch.float32)
+    else:                                              # BINARY_WEIGHT
+        y = B.binary_dot_unpacked_mxu(x, params["w_packed"], k, dtype=dtype)
+        y = y.to(torch.float32)
+    return (y * alpha).to(dtype)
+
+
+def maybe_pack_tree(params, quant: QuantConfig, device="cuda"):
+    """Pack every linear of a param tree for inference (weights pack once
+    at load, paper C2), on ``device``: the card unless the caller asks for
+    the CPU.  A linear is a dict whose one key is ``"w"``, of two or more
+    dims.  Every other leaf is placed on ``device`` as it is (the same
+    tensor where it is there already); in ``FLOAT`` mode that is all."""
+    device = _check_device(device)
+
+    def walk(p):
+        if isinstance(p, dict):
+            if quant.mode != QuantMode.FLOAT and "w" in p and \
+                    len(p) == 1 and getattr(p["w"], "ndim", 0) >= 2:
+                return pack_linear({"w": p["w"].to(device)})
+            return {k: walk(v) for k, v in p.items()}
+        if isinstance(p, (list, tuple)):
+            return type(p)(walk(v) for v in p)
+        return p.to(device) if isinstance(p, torch.Tensor) else p
+
+    return walk(params)

@@ -1,0 +1,148 @@
+"""Top-level model API: init, forward, prefill, decode (the reference's
+``models/model.py``, its serving half).
+
+One entry point for all ten registry families:
+
+* decoder-only LMs (dense, moe, ssm, hybrid, the vlm backbone) through
+  ``transformer.py``'s float stack;
+* encoder-decoder (whisper) through ``encdec.py``;
+* stub frontends: ``batch["embeds"]``, where present, takes the token
+  embedding's place (precomputed patch or frame embeddings).
+
+``init_model`` places the weights on ``device``, the card unless the
+caller asks for the CPU, and raises without a card; the other functions
+run where the weights are.  In ``binary`` mode the packed linears' XNOR
+route launches K5 and K4 on the card and runs their plain versions on
+the CPU (``quant.backend``).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import common as C
+from repro_torch.models import encdec as ED
+from repro_torch.models import linear as LN
+from repro_torch.models import transformer as TF
+from repro_torch.models.cnn import _check_device
+from repro_torch.tree import tree_map
+
+
+def init_model(gen: torch.Generator, cfg, device="cuda") -> dict:
+    """Float32 weights drawn from ``gen`` (on the generator's device) and
+    placed on ``device``; the decoder stack is placed a group at a time."""
+    device = _check_device(device)
+
+    def put(tree):
+        return tree_map(lambda t: t.to(device), tree)
+
+    p: dict = {
+        "embed": put(C.init_embedding(gen, cfg.vocab_size, cfg.d_model)),
+        "ln_out": put(C.init_norm(gen, cfg.norm_type, cfg.d_model)),
+    }
+    if cfg.encoder_layers:
+        p["encdec"] = put(ED.init_encdec_stack(gen, cfg))
+    else:
+        p["stack"] = TF.init_stack(gen, cfg, device=device)
+    if not cfg.tie_embeddings:
+        p["head"] = put(LN.init_linear(gen, cfg.d_model, cfg.vocab_size))
+    return p
+
+
+def _device(params: dict) -> torch.device:
+    return params["embed"]["table"].device
+
+
+def _embed_in(params: dict, cfg, batch: dict) -> torch.Tensor:
+    if batch.get("embeds") is not None:
+        return batch["embeds"].to(cfg.activation_dtype)
+    dt = cfg.activation_dtype
+    x = C.embed(params["embed"], batch["tokens"], dt)
+    return x * torch.tensor(cfg.d_model ** 0.5, dtype=dt, device=x.device)
+
+
+def _logits(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
+    x = C.apply_norm(cfg.norm_type, params["ln_out"], x)
+    if cfg.tie_embeddings:
+        logits = C.unembed(params["embed"], x, cfg.activation_dtype)
+    else:
+        logits = LN.apply_linear(params["head"], x, cfg.quant,
+                                 dtype=cfg.activation_dtype)
+    return C.softcap(logits, cfg.logit_softcap)
+
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int32, device=device)[None].expand(
+        b, s)
+
+
+def forward(params: dict, cfg, batch: dict, *, remat: bool = True
+            ) -> torch.Tensor:
+    """Full-sequence forward -> final hidden states (B, S, D).
+
+    batch: {"tokens": (B, S) integers} and/or {"embeds": (B, S, D)}; for
+    enc-dec also {"enc_embeds": (B, S_enc, D)}.  ``remat`` is accepted for
+    the reference's signature and changes nothing.
+    """
+    x = _embed_in(params, cfg, batch)
+    b, s = x.shape[:2]
+    positions = _positions(b, s, x.device)
+    if cfg.encoder_layers:
+        enc_out = ED.encode(params["encdec"], cfg,
+                            batch["enc_embeds"].to(x.device), remat=remat)
+        return ED.decode_train(params["encdec"], cfg, x, enc_out, positions,
+                               remat=remat)
+    return TF.stack_forward(params["stack"], cfg, x, positions, remat=remat)
+
+
+def logits_fn(params: dict, cfg, batch: dict) -> torch.Tensor:
+    """(B, S, V) logits."""
+    return _logits(params, cfg, forward(params, cfg, batch, remat=False))
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+def init_cache(params: dict, cfg, batch: int, max_len: int,
+               enc_len: int | None = None) -> dict:
+    """The decode cache for ``batch`` sequences of up to ``max_len``
+    positions, on the params' device."""
+    if cfg.encoder_layers:
+        return ED.init_encdec_cache(params["encdec"], cfg, batch, max_len,
+                                    enc_len or max_len)
+    return {"stack": TF.init_cache(cfg, batch, max_len,
+                                   device=_device(params))}
+
+
+def prefill(params: dict, cfg, batch: dict, max_len: int):
+    """Full-sequence prefill -> (last-token logits (B, 1, V), cache).  For
+    the encoder-decoder the cache is None (its decode cache comes from
+    ``init_cache`` and ``encdec.precompute_cross_kv``), as in the
+    reference."""
+    x = _embed_in(params, cfg, batch)
+    b, s = x.shape[:2]
+    positions = _positions(b, s, x.device)
+    if cfg.encoder_layers:
+        enc_out = ED.encode(params["encdec"], cfg,
+                            batch["enc_embeds"].to(x.device))
+        x = ED.decode_train(params["encdec"], cfg, x, enc_out, positions)
+        return _logits(params, cfg, x[:, -1:]), None
+    x, cache = TF.stack_prefill(params["stack"], cfg, x, positions, max_len)
+    return _logits(params, cfg, x[:, -1:]), {"stack": cache}
+
+
+def decode_step(params: dict, cfg, tokens: torch.Tensor, cache: dict,
+                idx: int, *, enc_out: torch.Tensor | None = None):
+    """One new token for every sequence.  tokens: (B, 1) integers; ``idx``
+    is the absolute position being written.  Returns (logits (B, 1, V),
+    cache): the step is written into ``cache`` in place (clone it first to
+    keep the old one)."""
+    del enc_out
+    dt = cfg.activation_dtype
+    x = C.embed(params["embed"], tokens, dt)
+    x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt, device=x.device)
+    if cfg.encoder_layers:
+        x, _ = ED.decode_step(params["encdec"], cfg, x, cache, idx)
+    else:
+        x, _ = TF.stack_decode(params["stack"], cache["stack"], cfg, x, idx)
+    return _logits(params, cfg, x), cache

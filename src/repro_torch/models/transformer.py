@@ -1,6 +1,18 @@
-"""The packed binary LM (the reference's ``models/transformer.py:280-419``).
+"""The decoder stack of the model zoo, and the packed binary LM (the
+reference's ``models/transformer.py``).
 
-Every projection (Q, K, V, O, the FFN's up and down projections, the LM
+The float half (``:32-270`` there) assembles any registry config's
+decoder from pattern segments: a segment is one pass through
+``cfg.attention_pattern`` repeated over its groups, its params a tuple
+(one tree per pattern position) of trees stacked over the groups, the
+reference's layout, so weights cross over leaf for leaf; a Python loop
+over the group axis takes ``lax.scan``'s place.  Layer kinds: 'global' |
+'local' (attention), 'rec' (RG-LRU), 'ssm' (Mamba-2); every kind but
+'ssm' is followed by an FFN or MoE sub-block.
+
+  init_stack / stack_forward / init_cache / stack_prefill / stack_decode
+
+The packed binary LM (``:280-419`` there): every projection (Q, K, V, O, the FFN's up and down projections, the LM
 head) is a sign-binarized XNOR-popcount GEMM over packed operands; the
 FFN up-projection keeps the fused BN-sign-repack epilogue, so its int32
 activation never leaves the kernel; attention runs through the binary
@@ -24,19 +36,225 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs import LMSpec
-from repro_torch.core import binarize as B
 from repro_torch.core import binary_layers as L
 from repro_torch.kernels import ops as kops
+from repro_torch.models import attention as A
+from repro_torch.models import common as C
+from repro_torch.models import ffn as F
+from repro_torch.models import linear as LN
+from repro_torch.models import moe as M
+from repro_torch.models import rglru as R
+from repro_torch.models import ssm as S
 from repro_torch.models.cnn import _check_device, to_device
+from repro_torch.tree import tree_index, tree_map, tree_stack
+
+
+# ---------------------------------------------------------------------------
+# The float stack: segments, layers, caches
+# ---------------------------------------------------------------------------
+
+def segments_of(cfg) -> list[tuple[tuple[str, ...], int]]:
+    """[(pattern, n_groups), ...] covering exactly num_layers layers."""
+    period = cfg.pattern_period
+    n_full, leftover = divmod(cfg.num_layers, period)
+    segs: list[tuple[tuple[str, ...], int]] = []
+    if n_full:
+        segs.append((tuple(cfg.attention_pattern), n_full))
+    if leftover:
+        segs.append((tuple(cfg.attention_pattern[:leftover]), 1))
+    return segs
+
+
+def _has_ffn(cfg, kind: str) -> bool:
+    return kind != "ssm" and (cfg.d_ff > 0 or cfg.moe is not None)
+
+
+def init_layer(gen: torch.Generator, cfg, kind: str) -> dict:
+    p: dict = {"ln1": C.init_norm(gen, cfg.norm_type, cfg.d_model)}
+    if kind in ("global", "local"):
+        p["attn"] = A.init_attention(gen, cfg)
+    elif kind == "rec":
+        p["rec"] = R.init_rglru_block(gen, cfg)
+    elif kind == "ssm":
+        p["ssm"] = S.init_mamba2(gen, cfg)
+    else:
+        raise ValueError(kind)
+    if _has_ffn(cfg, kind):
+        p["ln2"] = C.init_norm(gen, cfg.norm_type, cfg.d_model)
+        p["mlp"] = (M.init_moe(gen, cfg) if cfg.moe is not None
+                    else F.init_ffn(gen, cfg))
+    return p
+
+
+def _mlp(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
+    if "mlp" not in params:
+        return x
+    h2 = C.apply_norm(cfg.norm_type, params["ln2"], x)
+    y = (M.apply_moe(params["mlp"], cfg, h2) if cfg.moe is not None
+         else F.apply_ffn(params["mlp"], cfg, h2))
+    return x + y
+
+
+def apply_layer(params: dict, cfg, kind: str, x: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+    h = C.apply_norm(cfg.norm_type, params["ln1"], x)
+    if kind in ("global", "local"):
+        mix = A.attention_forward(params["attn"], cfg, h,
+                                  positions=positions, kind=kind)
+    elif kind == "rec":
+        mix = R.rglru_block_forward(params["rec"], cfg, h)
+    else:
+        mix = S.mamba2_forward(params["ssm"], cfg, h)
+    return _mlp(params, cfg, x + mix)
+
+
+def init_stack(gen: torch.Generator, cfg, device) -> list:
+    """A list of segments; each segment is a tuple (one entry per pattern
+    position) of trees stacked over the segment's groups.  Layers are
+    drawn from ``gen`` in depth order, a group at a time, and copied into
+    the stacked buffers on ``device`` at once, so that only one group's
+    trees exist beside them."""
+    stack = []
+    for pattern, n in segments_of(cfg):
+        seg = None
+        for g in range(n):
+            group = tuple(init_layer(gen, cfg, kind) for kind in pattern)
+            if seg is None:
+                seg = tree_map(lambda t: torch.empty(
+                    (n, *t.shape), dtype=t.dtype, device=device), group)
+            tree_map(lambda buf, t, g=g: buf[g].copy_(t), seg, group)
+            del group
+        stack.append(seg)
+    return stack
+
+
+def stack_forward(stack: list, cfg, x: torch.Tensor,
+                  positions: torch.Tensor, *, remat: bool = True
+                  ) -> torch.Tensor:
+    """The decoder stack on a full sequence.  ``remat`` is accepted for
+    the reference's signature; the forward keeps no activations, so it
+    changes nothing."""
+    del remat
+    for (pattern, n), seg_params in zip(segments_of(cfg), stack):
+        for g in range(n):
+            group = tree_index(seg_params, g)
+            for pos, kind in enumerate(pattern):
+                x = apply_layer(group[pos], cfg, kind, x, positions)
+    return x
+
+
+def init_cache(cfg, batch: int, max_len: int, device=None) -> list:
+    """The decode cache, mirroring the stack's segments."""
+    cache = []
+    for pattern, n in segments_of(cfg):
+        seg = []
+        for kind in pattern:
+            if kind in ("global", "local"):
+                one = A.init_attn_cache(cfg, batch, max_len, kind,
+                                        device=device)
+            elif kind == "rec":
+                one = R.init_rglru_cache(cfg, batch, device=device)
+            else:
+                one = S.init_mamba2_cache(cfg, batch, device=device)
+            seg.append(tree_stack([one] * n))
+        cache.append(tuple(seg))
+    return cache
+
+
+def apply_layer_decode(params: dict, cfg, kind: str, x: torch.Tensor,
+                       cache: dict, idx: int):
+    h = C.apply_norm(cfg.norm_type, params["ln1"], x)
+    if kind in ("global", "local"):
+        mix, new_cache = A.attention_decode(params["attn"], cfg, h, cache,
+                                            idx, kind=kind)
+    elif kind == "rec":
+        mix, new_cache = R.rglru_block_decode(params["rec"], cfg, h, cache)
+    else:
+        mix, new_cache = S.mamba2_decode(params["ssm"], cfg, h, cache)
+    return _mlp(params, cfg, x + mix), new_cache
+
+
+def stack_decode(stack: list, cache: list, cfg, x: torch.Tensor, idx: int):
+    """One-token decode through the whole stack.  x: (B, 1, D).  Returns
+    (x, cache): each layer writes its step into its own slice of the
+    stacked cache, in place."""
+    for (pattern, n), seg_params, seg_cache in zip(segments_of(cfg), stack,
+                                                   cache):
+        for g in range(n):
+            group, group_cache = tree_index(seg_params, g), \
+                tree_index(seg_cache, g)
+            for pos, kind in enumerate(pattern):
+                x, _ = apply_layer_decode(group[pos], cfg, kind, x,
+                                          group_cache[pos], idx)
+    return x, cache
+
+
+def _ring_from_full(k: torch.Tensor, window: int) -> torch.Tensor:
+    """Full-sequence K/V (B, S, ...) -> the decode ring layout (B, window,
+    ...), for value tensors (B, S, H, D) and scales (B, S, H)."""
+    bsz, s = k.shape[:2]
+    w = min(window, s)
+    slots = (s - w + torch.arange(w, device=k.device)) % window
+    ring = torch.zeros((bsz, window, *k.shape[2:]), dtype=k.dtype,
+                       device=k.device)
+    ring[:, slots] = k[:, s - w:]
+    return ring
+
+
+def apply_layer_prefill(params: dict, cfg, kind: str, x: torch.Tensor,
+                        positions: torch.Tensor, max_len: int):
+    h = C.apply_norm(cfg.norm_type, params["ln1"], x)
+    if kind in ("global", "local"):
+        mix, (k, v) = A.attention_forward(params["attn"], cfg, h,
+                                          positions=positions, kind=kind,
+                                          return_kv=True)
+        if cfg.kv_cache_dtype == "int8":
+            kq, ks = A._kv_quantize(k)
+            vq, vs = A._kv_quantize(v)
+            parts = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+        else:
+            parts = {"k": k, "v": v}
+        if kind == "local":
+            size = min(max_len, cfg.window_size)
+            new_cache = {n: _ring_from_full(t, size)
+                         for n, t in parts.items()}
+        else:
+            new_cache = {n: C.pad_seq(t, max_len) for n, t in parts.items()}
+    elif kind == "rec":
+        mix, new_cache = R.rglru_block_forward(params["rec"], cfg, h,
+                                               return_cache=True)
+    else:
+        mix, new_cache = S.mamba2_forward(params["ssm"], cfg, h,
+                                          return_cache=True)
+    return _mlp(params, cfg, x + mix), new_cache
+
+
+def stack_prefill(stack: list, cfg, x: torch.Tensor,
+                  positions: torch.Tensor, max_len: int):
+    """The full-sequence forward that also returns the decode cache."""
+    cache_all = []
+    for (pattern, n), seg_params in zip(segments_of(cfg), stack):
+        per_group = []
+        for g in range(n):
+            group = tree_index(seg_params, g)
+            caches = []
+            for pos, kind in enumerate(pattern):
+                x, c = apply_layer_prefill(group[pos], cfg, kind, x,
+                                           positions, max_len)
+                caches.append(c)
+            per_group.append(tuple(caches))
+        cache_all.append(tree_stack(per_group))
+    return x, cache_all
+
+
+# ---------------------------------------------------------------------------
+# The packed binary LM
+# ---------------------------------------------------------------------------
 
 # The values ``dense_stack`` takes, as in the reference; the per-layer FFN
 # is one fused stage, so there is no stack to make resident and the value
 # is not used.
 DENSE_STACK_MODES = ("auto", "resident", "layered")
-
-# Rows of a weight matrix packed at once: the packing widens bits to int64,
-# so the 256000-row LM head is packed in slices.
-_PACK_ROWS = 16384
 
 
 def _lm_d_ff(spec: LMSpec) -> int:
@@ -75,9 +293,7 @@ def init_binary_lm(gen: torch.Generator, spec: LMSpec, device=None) -> dict:
 
 def _pack_dense(w: torch.Tensor) -> dict:
     """``binary_layers.pack_binary_dense``, a slice of rows at a time."""
-    words = torch.cat([B.pack_bits(w[i:i + _PACK_ROWS])
-                       for i in range(0, w.shape[0], _PACK_ROWS)])
-    return {"w_packed": words, "k_true": w.shape[1]}
+    return {"w_packed": LN.pack_rows(w), "k_true": w.shape[1]}
 
 
 def pack_transformer(params: dict, spec: LMSpec, *, max_len: int = 16,

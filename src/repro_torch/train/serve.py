@@ -29,8 +29,15 @@ What differs from the reference, and why:
 * **A mesh behind the queue** (``mesh=``) is a ``launch.mesh.Mesh``
   driven from this process (``distributed.sharding``); its positions may
   share one card.
-* **Not ported:** the LM decode server (``BatchedServer``) and its step
-  factories.
+
+The LM decode server of the model zoo (the reference's ``:878-1002``):
+:func:`make_prefill_step`, :func:`make_decode_step`, :class:`Request` and
+:class:`BatchedServer`, a slot ring over ``models.model.decode_step``
+with the reference's semantics (prompts teacher-forced through the
+decode path, freed slots zeroed, truncation when the cache runs out, one
+global decode mask).  The step runs eagerly where the reference jits it,
+and writes each token's K/V and state into the server's one cache in
+place where the reference's jit donates the buffer.
 """
 from __future__ import annotations
 
@@ -44,7 +51,9 @@ import torch
 from repro_torch.kernels import ops as kops
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import cnn as C
+from repro_torch.models import model as M
 from repro_torch.models.cnn import _check_device
+from repro_torch.tree import leaves_with_path, tree_map
 from repro_torch.telemetry import MetricsRegistry, Telemetry
 
 class BackpressureError(RuntimeError):
@@ -935,3 +944,122 @@ class SimClock:
     def advance(self, dt: float) -> float:
         self.t += dt
         return self.t
+
+
+# ---------------------------------------------------------------------------
+# LM decode serving (the model zoo): step factories + slot-ring driver
+# ---------------------------------------------------------------------------
+
+def make_prefill_step(cfg, max_len: int):
+    def prefill_step(params, batch):
+        return M.prefill(params, cfg, batch, max_len)
+    return prefill_step
+
+
+def make_decode_step(cfg):
+    def decode_step(params, cache, tokens, idx):
+        return M.decode_step(params, cfg, tokens, cache, idx)
+    return decode_step
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: Any                # (S,) integer ids: a tensor or a sequence
+    max_new: int
+    out: list = dataclasses.field(default_factory=list)
+    truncated: bool = False    # hit the cache length before max_new tokens
+
+
+class BatchedServer:
+    """Minimal continuous-batching server over the decode step.
+
+    All sequences share one ring of decode slots; finished requests free
+    their slot for the next queued prompt.  The server serves on
+    ``device``, the card unless the caller asks for the CPU: the params
+    are placed there (the same tensors where they are there already), and
+    it holds one decode cache there, which every step updates in place.
+    """
+
+    def __init__(self, cfg, params, batch_slots: int, max_len: int,
+                 device="cuda"):
+        self.device = _check_device(device)
+        self.cfg = cfg
+        self.params = tree_map(lambda t: t.to(self.device)
+                               if isinstance(t, torch.Tensor) else t, params)
+        self.max_len = max_len
+        self.slots = batch_slots
+        self.cache = M.init_cache(self.params, cfg, batch_slots, max_len)
+        self.decode = make_decode_step(cfg)
+        self.active: dict[int, Request] = {}
+        self.idx = 0
+
+    def _reset_slot(self, s: int) -> None:
+        """Zero the freed slot's cache rows (K/V and recurrent state).
+
+        A reused slot would otherwise inherit the previous request's rows
+        at positions < self.idx.  Cache leaves are (L, B, ...) with the
+        slot axis at 1.  The decode mask stays global (j <= idx), so the
+        zeroed positions still take softmax weight and dilute the new
+        occupant's attention against decoding it alone, as in the
+        reference.
+        """
+        for _, a in leaves_with_path(self.cache):
+            if a.ndim >= 2 and a.shape[1] == self.slots:
+                a[:, s] = 0
+
+    def submit_and_run(self, requests: list[Request]) -> list[Request]:
+        """Greedy decode of every request (prompts are consumed token by
+        token through the decode path).
+
+        Every submitted request appears in the return value: completed
+        (``max_new`` tokens) or flagged ``truncated=True`` when the shared
+        cache ran out of positions first (requests still queued then come
+        back truncated with empty output).  Each call starts a fresh cache
+        window.
+        """
+        queue = list(requests)
+        for r in queue:
+            r.out = []
+            r.truncated = False
+        done: list[Request] = []
+        slot_req: dict[int, Request] = {}
+        pos = [0] * self.slots
+        self.idx = 0
+        while (queue or slot_req) and self.idx < self.max_len:
+            for s in range(self.slots):
+                if s not in slot_req and queue:
+                    slot_req[s] = queue.pop(0)
+                    pos[s] = 0
+            step_tok = []
+            for s in range(self.slots):
+                r = slot_req.get(s)
+                if r is None:
+                    step_tok.append(0)
+                elif pos[s] < len(r.prompt):
+                    step_tok.append(int(r.prompt[pos[s]]))
+                else:
+                    step_tok.append(r.out[-1] if r.out else 0)
+            tok = torch.tensor(step_tok, dtype=torch.int32,
+                               device=self.device)[:, None]
+            logits, self.cache = self.decode(self.params, self.cache, tok,
+                                             self.idx)
+            nxt = torch.argmax(logits[:, 0], dim=-1).tolist()
+            for s in list(slot_req):
+                r = slot_req[s]
+                pos[s] += 1
+                if pos[s] >= len(r.prompt):
+                    r.out.append(int(nxt[s]))
+                    if len(r.out) >= r.max_new:
+                        done.append(r)
+                        del slot_req[s]
+                        self._reset_slot(s)
+            self.idx += 1
+        for s, r in list(slot_req.items()):
+            r.truncated = True
+            done.append(r)
+            self._reset_slot(s)
+        for r in queue:
+            r.truncated = True
+            done.append(r)
+        return done

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 from typing import Any, Callable, Iterator
 
+import torch
+
 
 def leaves_with_path(tree, prefix: str = "") -> Iterator[tuple[str, Any]]:
     """Every leaf of ``tree`` with its path, depth first."""
@@ -39,3 +41,36 @@ def map_with_path(fn: Callable[[str, Any], Any], tree, prefix: str = ""):
                for i, v in enumerate(tree)]
         return out if isinstance(tree, list) else tuple(out)
     return fn(prefix, tree)
+
+
+def tree_map(fn: Callable[[Any], Any], *trees):
+    """``fn`` over the leaves of trees of one structure, leaf by leaf;
+    dicts, lists, tuples and ``None`` keep their places."""
+    first = trees[0]
+    if first is None:
+        return None
+    if isinstance(first, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, (list, tuple)):
+        out = [tree_map(fn, *(t[i] for t in trees))
+               for i in range(len(first))]
+        return out if isinstance(first, list) else tuple(out)
+    return fn(*trees)
+
+
+def tree_stack(trees: list):
+    """Trees of one structure -> one tree, each leaf the ``torch.stack`` of
+    theirs along a new axis 0 (the reference's scan-stacked layers)."""
+    return tree_map(lambda *xs: torch.stack(xs, dim=0), *trees)
+
+
+def tree_index(tree, i: int):
+    """Axis-0 entry ``i`` of every leaf (one layer of a stacked tree)."""
+    return tree_map(lambda x: x[i], tree)
+
+
+def tree_bytes(tree) -> int:
+    """The bytes of every tensor leaf."""
+    return sum(x.numel() * x.element_size()
+               for _, x in leaves_with_path(tree)
+               if hasattr(x, "element_size"))

@@ -714,3 +714,86 @@ def test_sharded_forward_on_one_card(dev, shape):
         "bitplane_conv_bn_sign": n, "conv_bn_sign": n, "xnor_gemm": n,
         **stack}
     assert torch.equal(got, cnn.bcnn_forward_packed_int(packed, x.to(dev)))
+
+
+# ---------------------------------------------------------------------------
+# The model zoo: the packed linear's routes and one reduced config per
+# family, the kernel route (K5 + K4) against the plain route on the card
+# ---------------------------------------------------------------------------
+
+def _zoo_route(cfg, backend):
+    import dataclasses
+    return dataclasses.replace(cfg, quant=dataclasses.replace(
+        cfg.quant, backend=backend))
+
+
+@pytest.mark.parametrize("rows", [1, 4, 128, 256, 300])
+def test_zoo_packed_linear_routes(dev, rows):
+    """``apply_linear`` in binary mode on packed weights: the XNOR route
+    launches K5 and K4 once each up to 256 rows (none above, the unpack
+    route), and every route and backend gives the same values."""
+    from repro_torch.core.quantize import GemmStrategy
+    from repro_torch.models import linear as LN
+    cfg = configs.get_config("gemma2-9b", quant="binary", reduced=True)
+    gen = torch.Generator().manual_seed(rows)
+    p = LN.pack_linear({"w": torch.randn((200, 96), generator=gen)})
+    p = {k: v.to(dev) for k, v in p.items()}
+    x = torch.randn((rows, 200), generator=gen).to(dev)
+    ops.reset_launch_counts()
+    got = LN.apply_linear(p, x, cfg.quant, dtype=torch.float32)
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    assert counts == ({"bitpack": 1, "xnor_gemm": 1} if rows <= 256 else {})
+    plain = _zoo_route(cfg, "torch").quant
+    assert torch.equal(got, LN.apply_linear(p, x, plain,
+                                            dtype=torch.float32))
+    for s in ("vpu_xnor", "mxu_unpack"):
+        import dataclasses
+        q = dataclasses.replace(cfg.quant, strategy=GemmStrategy(s))
+        assert torch.equal(got, LN.apply_linear(p, x, q,
+                                                dtype=torch.float32))
+
+
+@pytest.mark.parametrize("name", ["gemma2-9b", "mamba2-1.3b",
+                                  "qwen3-moe-30b-a3b", "qwen2-vl-72b",
+                                  "whisper-base", "recurrentgemma-9b"])
+def test_zoo_reduced_family_kernel_route(dev, name):
+    """One reduced config per family in binary mode, packed on the card:
+    ``logits_fn``, ``prefill`` and two decode steps equal on the kernel
+    and the plain route, with K5 and K4 launched."""
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import linear as LN
+    from repro_torch.models import model as M
+    from repro_torch.tree import leaves_with_path, tree_map
+    cfg = configs.get_config(name, quant="binary", reduced=True)
+    plain = _zoo_route(cfg, "torch")
+    params = M.init_model(torch.Generator(device=dev).manual_seed(0), cfg)
+    packed = LN.maybe_pack_tree(params, cfg.quant)
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 12),
+                                     generator=gen).to(dev)}
+    if cfg.encoder_layers:
+        batch["enc_embeds"] = torch.randn((2, 10, cfg.d_model),
+                                          generator=gen).to(dev)
+
+    def equal(a, b):
+        la, lb = list(leaves_with_path(a)), list(leaves_with_path(b))
+        assert [p for p, _ in la] == [p for p, _ in lb]
+        for (path, x), (_, y) in zip(la, lb):
+            assert torch.equal(x, y), path
+
+    ops.reset_launch_counts()
+    equal(M.logits_fn(packed, cfg, batch), M.logits_fn(packed, plain, batch))
+    assert ops.launch_counts()["xnor_gemm"] > 0
+    logits, cache = M.prefill(packed, cfg, batch, 16)
+    equal((logits, cache), M.prefill(packed, plain, batch, 16))
+    if cfg.encoder_layers:
+        enc = ED.encode(packed["encdec"], cfg, batch["enc_embeds"])
+        cache = M.init_cache(packed, cfg, 2, 16, enc_len=10)
+        cache["cross"] = ED.precompute_cross_kv(packed["encdec"], cfg, enc)
+    for i in range(2):
+        tok = logits[:, -1].float().argmax(-1, keepdim=True)
+        # a step writes into the cache it is given: one copy for each route
+        got = M.decode_step(packed, cfg, tok, tree_map(torch.clone, cache),
+                            12 + i)
+        equal(got, M.decode_step(packed, plain, tok, cache, 12 + i))
+        logits, cache = got

@@ -48,6 +48,17 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.runtime.elastic",
             "repro_torch.runtime.fault_tolerance",
             "repro_torch.runtime.supervisor", "repro_torch.tree"} <= set(names)
+    # and the model zoo's: the registry configs, the quant policy and the
+    # float stack's modules
+    assert {"repro_torch.configs", "repro_torch.configs.base",
+            "repro_torch.configs.registry",
+            "repro_torch.configs.lm", "repro_torch.configs.gemma2_9b",
+            "repro_torch.configs.whisper_base", "repro_torch.core.quantize",
+            "repro_torch.models.common", "repro_torch.models.linear",
+            "repro_torch.models.ffn", "repro_torch.models.attention",
+            "repro_torch.models.moe", "repro_torch.models.ssm",
+            "repro_torch.models.rglru", "repro_torch.models.encdec",
+            "repro_torch.models.model"} <= set(names)
     assert leaked == []
 
 
