@@ -90,7 +90,22 @@ Phases, each printing its lines:
    (encode 1500 frames, 8 decode steps) at their published widths; every
    reduced registry config in each mode (``logits_fn``, ``prefill``, 3
    decode steps); the packed binary LM on every reduced config, stage by
-   stage.
+   stage;
+9. training (``train/trainer.py``): starcoder2-3b at its published width
+   and depth (30 layers, d_model 3072, 24/2 heads of 128, gelu d_ff
+   12288, vocab 49152, untied head, bfloat16 activations; float32 masters
+   made on the card from seed 0), 3 steps in ``float`` and 3 in
+   ``binary`` at (B, S) = (4, 512) on the port's stream, each step's ms
+   (CUDA events), tokens/s, and each run's peak memory beside the
+   reckoning from the parameter count; one step each of
+   ``microbatches=4`` (held to ``microbatches=1`` from the same state),
+   ``compress_grads`` and ``grads_bf16`` on the full-width binary state;
+   a reduced float32 step on the card held to the same step on the CPU;
+   the binary-trained tree, its optimizer state freed, packed by
+   ``maybe_pack_tree`` and served: a (8, 16) prefill and a decode step,
+   each launching K5 = K4 = the tree's packed linears (181) and equal to
+   the plain route; the STE gradients of ``BCNNSpec()`` and
+   ``BMLPSpec()`` at batch 8, card against CPU.
 
 Every kernel is held to its plain version exactly, but for the attention
 kernel (K8), whose float softmax is held within rtol = atol = 2e-5 (the
@@ -2608,6 +2623,491 @@ def zoo_forward_launches(cfg, mode):
     return zoo_step_launches(n)
 
 
+
+# Phase 9: training (``train/trainer.py``).  starcoder2-3b at its published
+# width and depth (``configs/starcoder2_3b.py``, arXiv:2402.19173): 30
+# layers, d_model 3072, 24 query heads over 2 KV heads of 128, gelu d_ff
+# 12288, vocab 49152, untied head, bfloat16 activations, float32 masters
+# made on the card from seed 0; nothing cut.  Three steps in 'float' and
+# three in 'binary' on the port's stream at (B, S) = TRAIN_BATCH; one step
+# each of compress_grads and grads_bf16 on a full-width binary state, and
+# of microbatches=4 against microbatches=1 from the same binary state, at
+# bfloat16 and at float32 activations; a reduced
+# step on the card against the CPU; the binary-trained tree packed and
+# served through K5 + K4; the paper's nets' STE gradients, card against
+# CPU.
+TRAIN_LM = "starcoder2-3b"
+TRAIN_BATCH = (4, 512)
+TRAIN_STEPS = 3
+TRAIN_LR = 3e-4            # the trainer's default, 100 warm-up steps
+TRAIN_MICRO = 4
+# microbatches=4 against 1, one step each at the full learning rate
+# (warm-up 1) from the same fresh state, at the config's own bfloat16
+# activations and again at float32: the loss within the reference's rtol
+# 1e-3 (tests/test_trainer_optim.py), the gradients' global norm within
+# rtol 1e-4, and the gradients themselves (mu = 0.1 x the clipped
+# gradient) within MICRO_MU[dtype] of each leaf's largest value; the
+# elements past MICRO_NEAR of their value plus MICRO_NEAR of the largest
+# are counted.  A wrong microbatch scale moves mu and the norm by 100 % or
+# more.  The params are not compared: Adam's first step moves each by
+# lr (sign(g) + weight_decay p) whatever the gradient's size, so the
+# reference's param bounds cannot tell a fault from a right step.  The
+# bfloat16 runs' forwards round apart (a 512-row and a 2048-row product
+# need not sum in one order), and binary activations near 0 and STE masks
+# near +-1 flip with them: mu read 0.015 of a leaf's largest there, and
+# 2.6e-06 in the same pair at float32, where the rounding, and so the
+# flips, are 2^16 times rarer (H100 readings, PERF.md).
+MICRO_TOL = dict(loss_rtol=1e-3, norm_rtol=1e-4)
+MICRO_MU = {"bfloat16": 0.05, "float32": 1e-4}
+MICRO_NEAR = 1e-3
+DEPLOY_PREFILL = (8, 16)
+STE_BATCH = 8
+STE_TOL = dict(rtol=1e-4, top=1e-6)
+SAMPLE = 1 << 16           # elements of each leaf kept to see it change
+
+
+def train_config(**kw):
+    from repro_torch.train import trainer as TR
+    return TR.TrainConfig(lr=TRAIN_LR, **kw)
+
+
+def train_reckoning(n: int, tc) -> dict:
+    """The bytes a step holds, from the parameter count: float32 params,
+    mu and nu; float32 gradients, or bfloat16 casts of the params and
+    bfloat16 gradients with ``grads_bf16``; the float32 error buffer with
+    ``compress_grads``."""
+    r = {"params+mu+nu": 12 * n}
+    if tc.grads_bf16:
+        r["bf16 leaves"] = 2 * n
+        r["bf16 grads"] = 2 * n
+    else:
+        r["grads"] = 4 * n
+    if tc.compress_grads:
+        r["ef_error"] = 4 * n
+    r["total"] = sum(r.values())
+    return r
+
+
+def free_card() -> None:
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def fresh_state(cfg, tc, dev):
+    """The full-width train state made on the card from seed 0."""
+    import torch
+    from repro_torch.train import trainer as TR
+    return TR.init_train_state(torch.Generator(device=dev).manual_seed(0),
+                               cfg, tc, device=dev)
+
+
+class StepSplit:
+    """The trainer's ``mark`` hook: a CUDA event at the start of a step
+    and after each of its parts; ``parts()`` gives the last step's
+    milliseconds by part."""
+
+    def __init__(self):
+        self.events = []
+
+    def __call__(self, name) -> None:
+        import torch
+        if name == "begin":
+            self.events = []
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append((name, ev))
+
+    def parts(self) -> dict:
+        out = {}
+        for (_, a), (name, b) in zip(self.events, self.events[1:]):
+            out[name] = out.get(name, 0.0) + a.elapsed_time(b)
+        return out
+
+
+def leaf_samples(tree) -> list:
+    from repro_torch.tree import sorted_leaves
+    return [t.view(-1)[:SAMPLE].clone() for t in sorted_leaves(tree)]
+
+
+def timed_steps(what, cfg, tc, state, dev, steps, start=0,
+                split=None) -> list:
+    """``steps`` train steps on the port's stream, each timed with CUDA
+    events; every loss finite.  ``split``: a :class:`StepSplit` given to
+    the trainer as its ``mark``.  Returns one dict a step."""
+    import math
+    import torch
+    from repro_torch.data.synthetic import TokenStreamConfig, token_batch
+    from repro_torch.train import trainer as TR
+    b, s = TRAIN_BATCH
+    dcfg = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                             global_batch=b)
+    step = TR.make_train_step(cfg, tc, mark=split)
+    out = []
+    for i in range(start, start + steps):
+        batch = token_batch(dcfg, i, dev)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, m = step(state, batch)
+        e1.record()
+        torch.cuda.synchronize()
+        ms = e0.elapsed_time(e1)
+        row = {"step": i, "ms": ms, "tokens_per_s": b * s / ms * 1e3,
+               "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "lr": float(m["lr"])}
+        if not (math.isfinite(row["loss"]) and
+                math.isfinite(row["grad_norm"])):
+            raise AssertionError(f"{what} step {i}: {row}")
+        log(f"train {what} step {i}: loss {row['loss']:.6g} grad_norm "
+            f"{row['grad_norm']:.6g} lr {row['lr']:.4g}; {ms:.6g} ms "
+            f"({row['tokens_per_s']:.6g} tokens/s)")
+        out.append(row)
+    return out
+
+
+def check_trained(what, state, samples, binary) -> None:
+    """Every leaf moved (in its first SAMPLE elements); in the binary
+    modes every leaf within [-1, 1]."""
+    import torch
+    from repro_torch.tree import sorted_leaves
+    leaves = list(sorted_leaves(state["params"]))
+    still = [i for i, (t, s) in enumerate(zip(leaves, samples))
+             if torch.equal(t.view(-1)[:SAMPLE], s)]
+    if still:
+        raise AssertionError(f"train {what}: leaves {still} never moved")
+    if binary:
+        top = max(float(t.abs().max()) for t in leaves)
+        if top > 1.0:
+            raise AssertionError(f"train {what}: a latent at {top}")
+
+
+def run_training(what, cfg, tc, dev, steps, *, split=False, keep=False):
+    """A fresh full-width state, ``steps`` timed steps, the peak memory
+    beside the reckoning; with ``split`` the last step split into its
+    parts by the trainer's marks.  Returns (rows, peak bytes, parameter
+    count, the parts, the state if ``keep``, else None: it is freed)."""
+    import torch
+    from repro_torch.tree import sorted_leaves
+    free_card()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = fresh_state(cfg, tc, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(t.numel() for t in sorted_leaves(state["params"]))
+    samples = leaf_samples(state["params"])
+    marks = StepSplit() if split else None
+    rows = timed_steps(what, cfg, tc, state, dev, steps, split=marks)
+    check_trained(what, state, samples, cfg.quant.mode.value != "float")
+    peak = torch.cuda.max_memory_allocated() - base
+    parts = None
+    if split:
+        parts = marks.parts()
+        total = sum(parts.values())
+        log(f"train {what} step {rows[-1]['step']} split (CUDA events at "
+            f"the trainer's marks): " + ", ".join(
+                f"{k} {ms:.5g} ms ({ms / total:.1%})"
+                for k, ms in parts.items()) + f"; {total:.5g} ms in all")
+    reck = train_reckoning(n, tc)
+    log(f"train {what}: {n} parameters, state made on the card in "
+        f"{init_s:.3g} s; peak {peak} bytes allocated (max_memory_allocated "
+        f"above the {base} bytes held before) against the reckoning "
+        f"{reck['total']} bytes {reck} (+{peak - reck['total']} bytes: "
+        f"activations, the loss chunk, temporaries)")
+    if keep:
+        return rows, peak, n, parts, state
+    del state
+    free_card()
+    return rows, peak, n, parts, None
+
+
+def micro_check(cfg, dev, dtype) -> dict:
+    """microbatches=4 against microbatches=1, one step each at the full
+    learning rate from the same fresh full-width state (seed 0, made
+    twice) with activations in ``dtype``: the loss, the gradients' norm
+    and ``mu`` as the comment on MICRO_TOL says.  The first run's ``mu``
+    waits on the host.  Logs every figure and returns the failures."""
+    import dataclasses
+    import torch
+    from repro_torch.optim import adamw as OPT
+    from repro_torch.tree import sorted_leaves
+    cfg = dataclasses.replace(cfg, dtype=dtype)
+    tc = dict(warmup=1)
+    what = f"binary {dtype}"
+    free_card()
+    st4 = fresh_state(cfg, train_config(microbatches=TRAIN_MICRO, **tc), dev)
+    r4 = timed_steps(f"{what} microbatches={TRAIN_MICRO}, warm-up 1", cfg,
+                     train_config(microbatches=TRAIN_MICRO, **tc), st4, dev,
+                     1)
+    host = [m.cpu() for m in sorted_leaves(st4["opt"]["mu"])]
+    del st4
+    free_card()
+    st1 = fresh_state(cfg, train_config(**tc), dev)
+    r1 = timed_steps(f"{what} microbatches=1, warm-up 1", cfg,
+                     train_config(**tc), st1, dev, 1)
+    (l4, n4), (l1, n1) = [(r[0]["loss"], r[0]["grad_norm"]) for r in (r4, r1)]
+    mu_worst, mu_far = 0.0, 0
+    for m1_full, hm_full in zip(sorted_leaves(st1["opt"]["mu"]), host):
+        top = float(m1_full.abs().max())
+        mu_leaf = 0.0
+        # a slice at a time: the temporaries of a 1.1e9-element leaf
+        # would take 4.5 GB each
+        for m1, hm in OPT.slices(m1_full, hm_full):
+            dm = (hm.to(dev) - m1).abs()
+            mu_far += int((dm > MICRO_NEAR * (m1.abs() + top)).sum())
+            mu_leaf = max(mu_leaf, float(dm.max()))
+        mu_worst = max(mu_worst, mu_leaf / max(top, 1e-30))
+    log(f"train {what} microbatches={TRAIN_MICRO} against 1, same state, "
+        f"lr {r1[0]['lr']:.4g}: loss {l4:.7g} / {l1:.7g} (rtol "
+        f"{abs(l4 - l1) / abs(l1):.3g}, bound {MICRO_TOL['loss_rtol']}); "
+        f"grad_norm {n4:.7g} / {n1:.7g} (rtol {abs(n4 - n1) / abs(n1):.3g}, "
+        f"bound {MICRO_TOL['norm_rtol']}); mu max abs diff {mu_worst:.3g} "
+        f"of its leaf's largest (bound {MICRO_MU[dtype]}), {mu_far} "
+        f"elements past {MICRO_NEAR} of the value plus {MICRO_NEAR} of the "
+        f"largest")
+    failed = [f"microbatches {dtype}"] if \
+        abs(l4 - l1) > MICRO_TOL["loss_rtol"] * abs(l1) or \
+        abs(n4 - n1) > MICRO_TOL["norm_rtol"] * abs(n1) or \
+        mu_worst > MICRO_MU[dtype] else []
+    del st1
+    free_card()
+    return {"rows4": r4, "rows1": r1, "mu_worst": mu_worst,
+            "mu_far": mu_far, "failed": failed}
+
+
+def train_card_vs_cpu(dev) -> dict:
+    """One reduced starcoder2-3b step with dtype float32 from the same
+    state and batch on the card and on the CPU, in float and binary:
+    loss and gradient norm within rtol 1e-5; moments within 1e-4 of each
+    value plus 1e-5 of the tree's largest; params within 1e-6 where the
+    gradient is above 1e-5 of the largest, and elsewhere (float noise,
+    which Adam's first step turns into a unit step of either sign)
+    within the step's bound, 2 lr (1 + 0.1 |p|)."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.synthetic import TokenStreamConfig, token_batch
+    from repro_torch.train import trainer as TR
+    from repro_torch.tree import sorted_leaves, tree_map
+    out = {}
+    for mode in ("float", "binary"):
+        cfg = dataclasses.replace(configs.get_config(
+            TRAIN_LM, quant=mode, reduced=True), dtype="float32")
+        tc = TR.TrainConfig(lr=1e-3, warmup=2, total_steps=10)
+        cpu = TR.init_train_state(torch.Generator().manual_seed(0), cfg, tc,
+                                  device="cpu")
+        card = tree_map(lambda t: t.to(dev, copy=True), cpu)
+        batch = token_batch(TokenStreamConfig(cfg.vocab_size, 32, 4), 0,
+                            "cpu")
+        step = TR.make_train_step(cfg, tc)
+        card, mc = step(card, {k: v.to(dev) for k, v in batch.items()})
+        cpu, mh = step(cpu, batch)
+        for k in ("loss", "grad_norm", "lr"):
+            if abs(float(mc[k]) - float(mh[k])) > 1e-5 * abs(float(mh[k])):
+                raise AssertionError(f"card vs cpu {mode} {k}: "
+                                     f"{float(mc[k])} / {float(mh[k])}")
+        for k in ("mu", "nu"):
+            want = list(sorted_leaves(cpu["opt"][k]))
+            top = max(float(t.abs().max()) for t in want)
+            for g, w in zip(sorted_leaves(card["opt"][k]), want):
+                torch.testing.assert_close(g.cpu(), w, rtol=1e-4,
+                                           atol=1e-5 * top)
+        mu = list(sorted_leaves(cpu["opt"]["mu"]))
+        top = max(float(t.abs().max()) for t in mu)
+        held_max = 0.0
+        for g, w, m in zip(sorted_leaves(card["params"]),
+                           sorted_leaves(cpu["params"]), mu):
+            d = (g.cpu() - w).abs()
+            held = m.abs() > 1e-5 * top
+            if bool(held.any()):
+                held_max = max(held_max, float(d[held].max()))
+            if not bool((d <= 2 * tc.lr * (1 + 0.1 * w.abs()) + 1e-6).all()):
+                raise AssertionError(f"card vs cpu {mode}: a step past its "
+                                     f"bound")
+        if held_max > 1e-6:
+            raise AssertionError(f"card vs cpu {mode}: params {held_max}")
+        out[mode] = (float(mc["loss"]), float(mh["loss"]),
+                     float(mc["grad_norm"]), float(mh["grad_norm"]),
+                     held_max)
+        log(f"train card vs cpu, reduced {TRAIN_LM} {mode} float32: loss "
+            f"{out[mode][0]:.8g} / {out[mode][1]:.8g}, grad_norm "
+            f"{out[mode][2]:.8g} / {out[mode][3]:.8g}, params max abs diff "
+            f"{held_max:.3g} where the gradient is not noise")
+    return out
+
+
+def deploy_trained(drv, cfg, params, dev) -> dict:
+    """The binary-trained full-width tree packed on the card and served:
+    prefill at DEPLOY_PREFILL and one decode step, K5 = K4 = the packed
+    linears of the tree, logits and cache equal to the plain route."""
+    import torch
+    from repro_torch.models import linear as LN
+    from repro_torch.train import serve as SV
+    from repro_torch.tree import leaves_with_path
+    t0 = time.perf_counter()
+    packed = LN.maybe_pack_tree(params, cfg.quant, device=dev)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    n = sum(t.shape[:-2].numel() for p, t in leaves_with_path(packed)
+            if p.endswith("w_packed"))
+    if n != packed_linears(cfg):
+        raise AssertionError(f"{n} packed linears in the tree, "
+                             f"{packed_linears(cfg)} by the config")
+    expect = zoo_step_launches(n)
+    b, s = DEPLOY_PREFILL
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=torch.Generator(
+        ).manual_seed(3)).to(dev)
+    step = SV.make_prefill_step(cfg, ZOO_MAX_LEN)
+    got, gcache = drv.run(f"train deploy prefill ({b}, {s})",
+                          lambda: step(packed, {"tokens": toks}), expect)
+    want, wcache = SV.make_prefill_step(zoo_plain(cfg), ZOO_MAX_LEN)(
+        packed, {"tokens": toks})
+    check_equal("train deploy prefill logits", got, want)
+    check_tree_equal("train deploy prefill cache", gcache, wcache)
+    if not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError("train deploy: logits not finite")
+    del gcache
+    tok = got[:, -1].float().argmax(-1, keepdim=True)
+    zoo_decode_pair(drv, "train deploy decode step", packed, cfg, tok,
+                    wcache, s, expect)
+    ms = time_ms(lambda: step(packed, {"tokens": toks}), reps=3)
+    log(f"train deploy: the binary-trained {TRAIN_LM} packed on the card in "
+        f"{pack_s:.3g} s ({n} packed linears: 6 a layer x {cfg.num_layers} "
+        f"and the head); prefill ({b}, {s}) and a decode step each launch "
+        f"{expect}, logits and cache equal the plain route's; prefill "
+        f"{ms:.5g} ms")
+    del packed, wcache
+    return {"linears": n, "pack_s": pack_s, "prefill_ms": ms}
+
+
+def unit_bn_var(bns) -> None:
+    """Set each BN variance to 1 - eps in float32, so that var + eps is 1
+    and its rsqrt exactly 1 on any device.  CUDA's float32 rsqrt and the
+    CPU's round differently, and one ulp in a BN scale can flip a sign or
+    a straight-through mask (a discrete decision) between the devices;
+    with the scale exact both forwards are the same IEEE operations on
+    the same integers and agree bit for bit."""
+    import torch
+    eps = torch.tensor(1e-5, dtype=torch.float32)
+    for bn in bns:
+        bn["var"] = torch.full_like(bn["var"], 1.0) - eps
+        if not bool(((bn["var"] + eps) == 1.0).all()):
+            raise AssertionError("1 - eps + eps is not 1 in float32")
+
+
+def ste_card_vs_cpu(dev) -> dict:
+    """The STE gradient of a cross-entropy through ``BCNNSpec()`` and
+    ``BMLPSpec()`` at batch STE_BATCH (``*_forward_float(..., ste=True)``),
+    random weights and BN (gamma of both signs, beta, mean; the variances
+    as ``unit_bn_var`` says) from seed 0, on the card and on the CPU: the
+    logits equal, loss within rtol 1e-5, every gradient within rtol 1e-4
+    plus 1e-6 of its leaf's largest (the ±1 dots and convs run in float64
+    on both; the gradients' sums run in another order).  Logs every
+    figure, then returns the failures."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import cnn
+    from repro_torch.tree import leaves_with_path, tree_map
+    gen = torch.Generator().manual_seed(0)
+    out, failed = {}, []
+    for kind, spec in (("bcnn", cnn.BCNNSpec()), ("bmlp", cnn.BMLPSpec())):
+        if kind == "bcnn":
+            params = cnn.init_bcnn(gen, spec)
+            bns = params["conv_bns"] + params["dense_bns"]
+            x = torch.randint(0, 256, (STE_BATCH, *spec.input_hw,
+                                       spec.c_in), generator=gen,
+                              dtype=torch.uint8)
+            fwd = lambda p, x: cnn.bcnn_forward_float(p, x, spec, ste=True)
+        else:
+            params = cnn.init_bmlp(gen, spec)
+            bns = params["bns"]
+            x = torch.randint(0, 256, (STE_BATCH, spec.sizes[0]),
+                              generator=gen, dtype=torch.uint8)
+            fwd = lambda p, x: cnn.bmlp_forward_float(p, x, ste=True)
+        randomize_bn(bns, gen)
+        unit_bn_var(bns)
+        y = torch.randint(0, 10, (STE_BATCH,), generator=gen)
+        res = {}
+        for where in ("cpu", dev):
+            p = tree_map(lambda t: t.detach().to(where, copy=True)
+                         .requires_grad_(True), params)
+            t0 = time.perf_counter()
+            logits = fwd(p, x.to(where))
+            loss = F.cross_entropy(logits, y.to(where))
+            loss.backward()
+            if where != "cpu":
+                torch.cuda.synchronize()
+            res[str(where)] = (float(loss.detach()), logits.detach().cpu(), [
+                (path, t.grad.cpu() if t.grad is not None
+                 else torch.zeros_like(t).cpu())
+                for path, t in leaves_with_path(p)],
+                time.perf_counter() - t0)
+        (lc, zc, gc, _), (ld, zd, gd, sd) = res["cpu"], res[str(dev)]
+        worst, bad = 0.0, []
+        for (path, a), (_, b) in zip(gd, gc):
+            top = float(b.abs().max())
+            d = (a - b).abs()
+            if bool((d > STE_TOL["rtol"] * b.abs()
+                     + STE_TOL["top"] * top).any()):
+                bad.append(path)
+            worst = max(worst, float(d.max()) / max(top, 1e-30))
+        moving = sum(float(g.abs().max()) > 0 for path, g in gd
+                     if path.endswith("/w"))
+        logits_equal = bool(torch.equal(zd, zc))
+        log(f"train ste {kind} batch {STE_BATCH}: logits "
+            f"{'equal' if logits_equal else 'differ'} on the card and the "
+            f"CPU (max abs diff {float((zd - zc).abs().max()):.3g}), loss "
+            f"{ld:.8g} / {lc:.8g}; gradients within rtol {STE_TOL['rtol']} "
+            f"+ {STE_TOL['top']} of their leaf's largest but {bad} (worst "
+            f"{worst:.3g} of it), {moving} latent weight leaves with a "
+            f"gradient; forward + backward on the card {sd * 1e3:.5g} ms")
+        if not logits_equal or abs(ld - lc) > 1e-5 * abs(lc) or bad:
+            failed.append(f"ste {kind}")
+        out[kind] = (ld, lc, worst)
+    out["failed"] = failed
+    return out
+
+
+def phase9_training(drv, dev) -> dict:
+    """Phase 9: training starcoder2-3b at full width and depth, then its
+    deploy; the reduced step card against CPU; the paper's nets."""
+    from repro_torch import configs
+    cfg = configs.get_config(TRAIN_LM)
+    bcfg = configs.get_config(TRAIN_LM, quant="binary")
+    log(f"train {TRAIN_LM}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
+        f"{cfg.ffn_type} d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, untied "
+        f"head {not cfg.tie_embeddings}, {cfg.dtype} activations, (B, S) = "
+        f"{TRAIN_BATCH}, lr {TRAIN_LR} after {train_config().warmup} "
+        f"warm-up steps, AdamW (clip_latent in binary)")
+    out = {"float": run_training("float", cfg, train_config(), dev,
+                                 TRAIN_STEPS, split=True)}
+    for what, tc in (("binary compress_grads",
+                      train_config(compress_grads=True)),
+                     ("binary grads_bf16", train_config(grads_bf16=True))):
+        out[what] = run_training(what, bcfg, tc, dev, 1)
+    *out["binary"], state = run_training("binary", bcfg, train_config(), dev,
+                                         TRAIN_STEPS, split=True, keep=True)
+    params = state.pop("params")
+    del state
+    free_card()
+    out["deploy"] = deploy_trained(drv, bcfg, params, dev)
+    del params
+    free_card()
+    out["card_vs_cpu"] = train_card_vs_cpu(dev)
+    out["ste"] = ste_card_vs_cpu(dev)
+    out["micro"] = {dt: micro_check(bcfg, dev, dt)
+                    for dt in ("bfloat16", "float32")}
+    failed = out["ste"]["failed"] + [
+        f for m in out["micro"].values() for f in m["failed"]]
+    if failed:
+        raise AssertionError(f"train: {failed} failed (logged above)")
+    return out
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2849,6 +3349,15 @@ def main() -> int:
     zoo_reduced(drv, dev)
     log(f"zoo: {time.perf_counter() - t0:.1f} s; launches in all, phases "
         f"4-8 {launches}")
+
+    # 9. training: starcoder2-3b at full width and depth, its deploy
+    free_card()
+    log(f"train: {torch.cuda.memory_allocated()} bytes held on the card "
+        f"from phases 1-8")
+    t0 = time.perf_counter()
+    phase9_training(drv, dev)
+    log(f"train: {time.perf_counter() - t0:.1f} s; launches in all, phases "
+        f"4-9 {launches}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     kernels = []

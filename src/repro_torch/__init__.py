@@ -1,8 +1,8 @@
 """Espresso's packed BMLP and BCNN forwards, the packed binary LM
-(``models/transformer.py``) and the model zoo's serving half (the ten
-registry architectures in ``configs/`` through ``models/model.py`` and
-``train/serve.py``'s ``BatchedServer``), on PyTorch and hand-written CUDA
-kernels.
+(``models/transformer.py``) and the model zoo (the ten registry
+architectures in ``configs/`` through ``models/model.py``), served by
+``train/serve.py``'s ``BatchedServer`` and trained by
+``train/trainer.py``, on PyTorch and hand-written CUDA kernels.
 
 The port of ``src/repro`` (JAX + Pallas) to an NVIDIA Hopper card.  It
 keeps the reference's word layout, so packed tensors compare word for

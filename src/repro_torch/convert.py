@@ -111,3 +111,20 @@ def tree_to_torch(tree, *, float_dtype=torch.float32):
         out = [tree_to_torch(v, float_dtype=float_dtype) for v in tree]
         return out if isinstance(tree, list) else tuple(out)
     return _leaf_to_torch(tree, float_dtype)
+
+
+def train_state_to_torch(state) -> dict:
+    """A reference train state (``repro.train.trainer.init_train_state``
+    or a step's output: {"params", "opt": {"mu", "nu", "step"},
+    ["ef_error"]}) -> the port's (``repro_torch.train.trainer``): the same
+    tree through :func:`tree_to_torch`, float leaves float32, ``step`` a
+    0-d int32 tensor."""
+    if not {"params", "opt"} <= set(state) or \
+            set(state["opt"]) != {"mu", "nu", "step"}:
+        raise ValueError(f"not a train state: keys {sorted(state)}")
+    out = tree_to_torch(state)
+    step = out["opt"]["step"]
+    if step.dim() or step.dtype != torch.int32:
+        raise ValueError(f"step must be a 0-d int32, got {step.dtype} of "
+                         f"shape {tuple(step.shape)}")
+    return out

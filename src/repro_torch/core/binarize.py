@@ -72,6 +72,12 @@ def binarize_ste(x: torch.Tensor) -> torch.Tensor:
     return _BinarizeSTE.apply(x)
 
 
+def clip_latent(w: torch.Tensor) -> torch.Tensor:
+    """Clip latent float weights to [-1, 1] after the optimizer step
+    (paper §4.4)."""
+    return torch.clamp(w, -1.0, 1.0)
+
+
 def to_words(w64: torch.Tensor) -> torch.Tensor:
     """Unsigned 32-bit values held in int64 -> int32 with the same bits."""
     w64 = w64 & _LOW32
@@ -183,3 +189,27 @@ def pack_bitplanes_uint8(x: torch.Tensor, nbits: int = 8) -> torch.Tensor:
     is the raw plane bits.
     """
     return pack_bool_bits(bitplanes_uint8(x, nbits))
+
+
+def bitplane_dot(x_uint8: torch.Tensor, w_pm1: torch.Tensor,
+                 nbits: int = 8) -> torch.Tensor:
+    """Exact first-layer dot via bit planes (paper §4.3, exact form).
+
+    A {0,1} plane ``p`` relates to its ±1 encoding ``p^ = 2p - 1`` by
+    ``p = (p^ + 1)/2``, so
+
+        x . w = sum_i 2^i (plane_i . w)
+              = sum_i 2^(i-1) ((plane^_i . w) + sum_j w_j).
+
+    ``x_uint8``: (..., K); ``w_pm1``: (N, K) ±1.  Returns (..., N) int32,
+    exactly ``x.int() @ w.T``.  The plane dots run in float64, exact for
+    these integers on any device (a float32 product may run in TF32).
+    """
+    planes = bitplanes_uint8(x_uint8, nbits)            # (nbits, ..., K)
+    planes_pm1 = (2 * planes - 1).to(torch.float64)
+    w = w_pm1.to(torch.float64)
+    plane_dots = torch.einsum("p...k,nk->p...n", planes_pm1, w)
+    weights = 2.0 ** torch.arange(nbits, dtype=torch.float64,
+                                  device=w.device) / 2.0
+    out = torch.tensordot(weights, plane_dots + w.sum(dim=-1), dims=1)
+    return out.to(torch.int32)

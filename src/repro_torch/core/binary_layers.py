@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import binarize as B
 from repro_torch.kernels import binary_conv as bconv
@@ -32,12 +33,20 @@ def init_binary_dense(gen: torch.Generator, in_dim: int,
     return {"w": _uniform(gen, (out_dim, in_dim))}
 
 
-def apply_binary_dense_float(params: Params, x: torch.Tensor) -> torch.Tensor:
+def _binarizer(ste: bool):
+    return B.binarize_ste if ste else B.sign_pm1
+
+
+def apply_binary_dense_float(params: Params, x: torch.Tensor, *,
+                             ste: bool = False) -> torch.Tensor:
     """Reference: y = sign(x) . sign(W)^T.  The ±1 dot runs in float64,
     which is exact for these integers on any device (a float32 product
-    may run in TF32), and returns float32."""
-    xb = B.sign_pm1(x.to(torch.float32)).to(torch.float64)
-    wb = B.sign_pm1(params["w"]).to(torch.float64)
+    may run in TF32), and returns float32.  ``ste=True`` puts the
+    straight-through estimator on both operands (the training path,
+    paper §4.4)."""
+    binarize = _binarizer(ste)
+    xb = binarize(x.to(torch.float32)).to(torch.float64)
+    wb = binarize(params["w"]).to(torch.float64)
     return (xb @ wb.T).to(torch.float32)
 
 
@@ -177,6 +186,32 @@ def init_binary_conv2d(gen: torch.Generator, kh: int, kw: int, c_in: int,
     return {"w": _uniform(gen, (c_out, kh, kw, c_in))}
 
 
+def conv2d_float64(h: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
+                   padding: str = "SAME") -> torch.Tensor:
+    """Correlation of (B, H, W, C) with (O, KH, KW, C), XLA's SAME/VALID
+    pads, in float64: exact for integer-valued operands on any device (a
+    float32 convolution may run in TF32), differentiable, returned as
+    float32 (B, H', W', O)."""
+    _, kh, kw, _ = w.shape
+    _, pads = bconv.conv_geometry(tuple(h.shape[1:3]), kh, kw, stride,
+                                  padding)
+    (pt, pb), (pl, pr) = pads
+    x = F.pad(h.to(torch.float64).permute(0, 3, 1, 2), (pl, pr, pt, pb))
+    z = F.conv2d(x, w.to(torch.float64).permute(0, 3, 1, 2), stride=stride)
+    return z.permute(0, 2, 3, 1).to(torch.float32)
+
+
+def apply_binary_conv2d_float(params: Params, x: torch.Tensor, *,
+                              stride: int = 1, padding: str = "SAME",
+                              ste: bool = False) -> torch.Tensor:
+    """Reference: the convolution of sign(x) with sign(W), true zero
+    padding (:func:`conv2d_float64`); ``ste=True`` is the training path."""
+    binarize = _binarizer(ste)
+    return conv2d_float64(binarize(x.to(torch.float32)),
+                          binarize(params["w"]), stride=stride,
+                          padding=padding)
+
+
 def pack_binary_conv2d(params: Params, *, input_hw: tuple[int, int],
                        stride: int = 1, padding: str = "SAME") -> Params:
     """Per-tap channel packing (C3) + the correction matrix (C5), built by
@@ -308,9 +343,17 @@ def _pool_windows(x: torch.Tensor, window: int, stride: int):
 
 def maxpool2d(x: torch.Tensor, window: int = 2,
               stride: int | None = None) -> torch.Tensor:
-    """VALID max pool over (B, H, W, C), elementwise max of the taps (works
-    for int32 on every device)."""
-    taps = _pool_windows(x, window, stride or window)
+    """VALID max pool over (B, H, W, C).  Integers: the elementwise max of
+    the taps (works for int32 on every device).  Floats: ``max_pool2d``,
+    whose gradient goes to the first maximum of a window in row-major
+    order, as the reference's ``reduce_window`` max sends it (an
+    elementwise max would split it between ties, and the float forward's
+    pre-BN values are integers, so ties are common)."""
+    stride = stride or window
+    if x.is_floating_point():
+        y = F.max_pool2d(x.permute(0, 3, 1, 2), window, stride)
+        return y.permute(0, 2, 3, 1)
+    taps = _pool_windows(x, window, stride)
     out = taps[0]
     for t in taps[1:]:
         out = torch.maximum(out, t)

@@ -21,12 +21,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch import telemetry
 from repro_torch.core import binarize as B
 from repro_torch.core import binary_layers as L
-from repro_torch.kernels import binary_conv as bconv
 
 
 # ---------------------------------------------------------------------------
@@ -147,19 +145,21 @@ def init_bmlp(gen: torch.Generator, spec: BMLPSpec) -> dict:
     return {"layers": layers, "bns": bns}
 
 
-def bmlp_forward_float(params: dict, x_uint8: torch.Tensor) -> torch.Tensor:
+def bmlp_forward_float(params: dict, x_uint8: torch.Tensor, *,
+                       ste: bool = False) -> torch.Tensor:
     """Reference forward on (B, K) fixed-precision input.  The first
-    layer takes the raw integer input (no sign)."""
+    layer takes the raw integer input (no sign).  ``ste=True`` is the
+    training path: sign with the straight-through estimator backward."""
     n = len(params["layers"])
     h = None
     for i in range(n):
         if i == 0:
             z = L.apply_bitplane_dense_float(params["layers"][i], x_uint8)
         else:
-            z = L.apply_binary_dense_float(params["layers"][i], h)
+            z = L.apply_binary_dense_float(params["layers"][i], h, ste=ste)
         z = L.apply_batchnorm(params["bns"][i], z)
         if i < n - 1:
-            h = B.sign_pm1(z)
+            h = B.binarize_ste(z) if ste else B.sign_pm1(z)
     return z
 
 
@@ -284,35 +284,26 @@ def init_bcnn(gen: torch.Generator, spec: BCNNSpec) -> dict:
             "denses": denses, "dense_bns": dense_bns}
 
 
-def _conv_same_float64(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """SAME, stride-1 correlation of (B, H, W, C) with (O, KH, KW, C) in
-    float64 (exact for these integers; no TF32), returned as float32."""
-    _, kh, kw, _ = w.shape
-    _, pads = bconv.conv_geometry(tuple(h.shape[1:3]), kh, kw, 1, "SAME")
-    (pt, pb), (pl, pr) = pads
-    x = F.pad(h.to(torch.float64).permute(0, 3, 1, 2), (pl, pr, pt, pb))
-    z = F.conv2d(x, w.to(torch.float64).permute(0, 3, 1, 2))
-    return z.permute(0, 2, 3, 1).to(torch.float32)
-
-
 def bcnn_forward_float(params: dict, x_uint8: torch.Tensor,
-                       spec: BCNNSpec) -> torch.Tensor:
+                       spec: BCNNSpec, *, ste: bool = False) -> torch.Tensor:
     """Reference forward on (B, H, W, C) fixed-precision input.  The first
-    conv takes the raw integer input (no sign)."""
+    conv takes the raw integer input (no sign).  ``ste=True`` is the
+    training path: sign with the straight-through estimator backward."""
+    binarize = B.binarize_ste if ste else B.sign_pm1
     h = x_uint8.to(torch.float32)
     for i, st in enumerate(spec.stages):
-        w = B.sign_pm1(params["convs"][i]["w"])
-        z = _conv_same_float64(h if i == 0 else B.sign_pm1(h), w)
+        w = binarize(params["convs"][i]["w"])
+        z = L.conv2d_float64(h if i == 0 else binarize(h), w)
         if st.pool:
             z = L.maxpool2d(z)
         h = L.apply_batchnorm(params["conv_bns"][i], z)
-    h = B.sign_pm1(h).reshape(h.shape[0], -1)
+    h = binarize(h).reshape(h.shape[0], -1)
     n = len(params["denses"])
     for i in range(n):
-        z = L.apply_binary_dense_float(params["denses"][i], h)
+        z = L.apply_binary_dense_float(params["denses"][i], h, ste=ste)
         z = L.apply_batchnorm(params["dense_bns"][i], z)
         if i < n - 1:
-            h = B.sign_pm1(z)
+            h = binarize(z)
     return z
 
 

@@ -10,6 +10,9 @@ float32.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.tree import leaves_with_path, tree_index
 
 
 def randn(gen: torch.Generator, shape, scale: float | None = None
@@ -215,3 +218,35 @@ def init_dense(gen: torch.Generator, d_in: int, d_out: int, *,
 def dense(params: dict, x: torch.Tensor, dtype=None) -> torch.Tensor:
     dtype = dtype or x.dtype
     return torch.matmul(x, params["w"].to(dtype))
+
+
+# ---------------------------------------------------------------------------
+# layers stacked over depth, rematerialization
+# ---------------------------------------------------------------------------
+
+def layer_of(stacked, i: int):
+    """Layer (or group) ``i`` of layers stacked over depth: a stacked tree
+    is indexed along axis 0; a list already holds one tree per layer (the
+    trainer differentiates with respect to per-layer views,
+    ``train/trainer.py``)."""
+    return stacked[i] if isinstance(stacked, list) else tree_index(stacked, i)
+
+
+def remat(fn, on: bool):
+    """``fn`` under non-reentrant ``torch.utils.checkpoint`` where ``on``,
+    autograd is recording and a tensor among the call's arguments (a
+    layer's params or its input) requires grad: its activations are
+    recomputed in the backward pass instead of kept, as ``jax.checkpoint``
+    with the ``nothing_saveable`` policy does.  Otherwise ``fn`` itself:
+    a forward that nothing differentiates (serving) keeps nothing
+    anyway.  The values do not change."""
+    if not on:
+        return fn
+
+    def run(*args):
+        if torch.is_grad_enabled() and any(
+                isinstance(t, torch.Tensor) and t.requires_grad
+                for _, t in leaves_with_path(args)):
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+    return run

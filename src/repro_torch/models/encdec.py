@@ -44,45 +44,55 @@ def init_encdec_stack(gen: torch.Generator, cfg) -> dict:
 
 
 def _depth(tree) -> int:
+    if isinstance(tree, list):
+        return len(tree)
     return tree["ln1"]["scale"].shape[0]
 
 
 def encode(params: dict, cfg, frames: torch.Tensor, *,
            remat: bool = True) -> torch.Tensor:
-    """frames: (B, S_enc, D) precomputed frame embeddings.  ``remat`` is
-    accepted for the reference's signature and changes nothing."""
-    del remat
+    """frames: (B, S_enc, D) precomputed frame embeddings.  With ``remat``
+    and autograd recording, each layer's activations are recomputed in
+    the backward pass (``common.remat``); the values never change."""
     b, s, _ = frames.shape
     pos = C.sinusoidal_positions(s, cfg.d_model,
                                  device=frames.device).to(frames.dtype)
     x = frames + pos[None]
     positions = torch.arange(s, device=frames.device)[None].expand(b, s)
-    for i in range(_depth(params["enc"])):
-        lp = tree_index(params["enc"], i)
-        x = x + A.attention_forward(
-            lp["attn"], cfg, C.apply_norm(cfg.norm_type, lp["ln1"], x),
+
+    def body(h, lp):
+        h = h + A.attention_forward(
+            lp["attn"], cfg, C.apply_norm(cfg.norm_type, lp["ln1"], h),
             positions=positions, causal=False)
-        x = x + F.apply_ffn(lp["mlp"], cfg,
-                            C.apply_norm(cfg.norm_type, lp["ln2"], x))
+        return h + F.apply_ffn(lp["mlp"], cfg,
+                               C.apply_norm(cfg.norm_type, lp["ln2"], h))
+
+    body = C.remat(body, remat)
+    for i in range(_depth(params["enc"])):
+        x = body(x, C.layer_of(params["enc"], i))
     return C.apply_norm(cfg.norm_type, params["enc_ln_out"], x)
 
 
 def decode_train(params: dict, cfg, x: torch.Tensor, enc_out: torch.Tensor,
                  positions: torch.Tensor, *, remat: bool = True
                  ) -> torch.Tensor:
-    """Teacher-forced decoder pass.  x: (B, S_dec, D) token embeddings."""
-    del remat
+    """Teacher-forced decoder pass.  x: (B, S_dec, D) token embeddings.
+    ``remat`` as in :func:`encode`."""
     x = x + params["dec_pos"][:x.shape[1]].to(x.dtype)[None]
-    for i in range(_depth(params["dec"])):
-        lp = tree_index(params["dec"], i)
-        x = x + A.attention_forward(
-            lp["attn"], cfg, C.apply_norm(cfg.norm_type, lp["ln1"], x),
+
+    def body(h, lp):
+        h = h + A.attention_forward(
+            lp["attn"], cfg, C.apply_norm(cfg.norm_type, lp["ln1"], h),
             positions=positions)
-        x = x + A.attention_forward(
-            lp["xattn"], cfg, C.apply_norm(cfg.norm_type, lp["ln_x"], x),
+        h = h + A.attention_forward(
+            lp["xattn"], cfg, C.apply_norm(cfg.norm_type, lp["ln_x"], h),
             positions=positions, kv_src=enc_out)
-        x = x + F.apply_ffn(lp["mlp"], cfg,
-                            C.apply_norm(cfg.norm_type, lp["ln2"], x))
+        return h + F.apply_ffn(lp["mlp"], cfg,
+                               C.apply_norm(cfg.norm_type, lp["ln2"], h))
+
+    body = C.remat(body, remat)
+    for i in range(_depth(params["dec"])):
+        x = body(x, C.layer_of(params["dec"], i))
     return x
 
 

@@ -98,8 +98,9 @@ def apply_linear(params: dict, x: torch.Tensor, quant: QuantConfig, *,
     w = params["w"]
     if quant.mode == QuantMode.FLOAT:
         return torch.matmul(x.to(dtype), w.to(dtype))
-    # latent-weight paths (STE)
-    wb = B.binarize_ste(w)
+    # latent-weight paths (STE); the ±1 weights contract in float32 (as
+    # the reference's einsum promotes bfloat16 ones: ``grads_bf16``)
+    wb = B.binarize_ste(w).to(torch.float32)
     alpha = torch.mean(torch.abs(w), dim=0).detach()
     if quant.mode == QuantMode.BINARY:
         y = torch.matmul(B.binarize_ste(x.to(torch.float32)), wb)

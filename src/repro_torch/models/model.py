@@ -1,5 +1,5 @@
-"""Top-level model API: init, forward, prefill, decode (the reference's
-``models/model.py``, its serving half).
+"""Top-level model API: init, forward, loss, prefill, decode (the
+reference's ``models/model.py``).
 
 One entry point for all ten registry families:
 
@@ -18,6 +18,7 @@ the CPU (``quant.backend``).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models import common as C
 from repro_torch.models import encdec as ED
@@ -25,6 +26,10 @@ from repro_torch.models import linear as LN
 from repro_torch.models import transformer as TF
 from repro_torch.models.cnn import _check_device
 from repro_torch.tree import tree_map
+
+# Sequence rows of one loss chunk: the (B, chunk, V) float32 logits are
+# the most of them that ever exist (vocabularies here reach 256k).
+LOSS_CHUNK = 512
 
 
 def init_model(gen: torch.Generator, cfg, device="cuda") -> dict:
@@ -80,8 +85,9 @@ def forward(params: dict, cfg, batch: dict, *, remat: bool = True
     """Full-sequence forward -> final hidden states (B, S, D).
 
     batch: {"tokens": (B, S) integers} and/or {"embeds": (B, S, D)}; for
-    enc-dec also {"enc_embeds": (B, S_enc, D)}.  ``remat`` is accepted for
-    the reference's signature and changes nothing.
+    enc-dec also {"enc_embeds": (B, S_enc, D)}.  ``remat``: under
+    autograd, keep only each layer's input and recompute the rest in the
+    backward pass (``common.remat``); it changes no value.
     """
     x = _embed_in(params, cfg, batch)
     b, s = x.shape[:2]
@@ -92,6 +98,43 @@ def forward(params: dict, cfg, batch: dict, *, remat: bool = True
         return ED.decode_train(params["encdec"], cfg, x, enc_out, positions,
                                remat=remat)
     return TF.stack_forward(params["stack"], cfg, x, positions, remat=remat)
+
+
+def loss_fn(params: dict, cfg, batch: dict) -> torch.Tensor:
+    """Next-token cross-entropy, a float32 scalar: the mean over the
+    labels that are >= 0 (``batch["labels"]``, (B, S)).
+
+    Chunked over the sequence as the reference's: the hidden states and
+    labels are padded to whole chunks of ``min(LOSS_CHUNK, S)`` rows (the
+    labels with -1, which count for nothing), and each chunk's logits are
+    made, reduced to its summed loss and valid count, and dropped.  Under
+    autograd each chunk runs under ``torch.utils.checkpoint``, so the
+    backward pass remakes its logits too: (B, S, V) logits never exist.
+    """
+    x = forward(params, cfg, batch)
+    labels = batch["labels"].to(x.device)
+    b, s = labels.shape
+    chunk = min(LOSS_CHUNK, s)
+    n = -(-s // chunk)
+    x = F.pad(x, (0, 0, 0, n * chunk - s))
+    labels = F.pad(labels, (0, n * chunk - s), value=-1)
+
+    def chunk_loss(xs, ls):
+        logits = _logits(params, cfg, xs).to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        idx = ls.clamp(min=0).to(torch.int64)[..., None]
+        tgt = torch.gather(logits, -1, idx)[..., 0]
+        valid = (ls >= 0).to(torch.float32)
+        return ((lse - tgt) * valid).sum(), valid.sum()
+
+    body = C.remat(chunk_loss, True)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        rows = slice(i * chunk, (i + 1) * chunk)
+        nll, valid = body(x[:, rows], labels[:, rows])
+        tot, cnt = tot + nll, cnt + valid
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 def logits_fn(params: dict, cfg, batch: dict) -> torch.Tensor:

@@ -131,15 +131,23 @@ def init_stack(gen: torch.Generator, cfg, device) -> list:
 def stack_forward(stack: list, cfg, x: torch.Tensor,
                   positions: torch.Tensor, *, remat: bool = True
                   ) -> torch.Tensor:
-    """The decoder stack on a full sequence.  ``remat`` is accepted for
-    the reference's signature; the forward keeps no activations, so it
-    changes nothing."""
-    del remat
+    """The decoder stack on a full sequence.  With ``remat`` and autograd
+    recording, each group's body runs under ``common.remat``: the
+    backward pass recomputes a group's activations from its input, so
+    only the group inputs are kept (the reference's ``jax.checkpoint``
+    with ``nothing_saveable`` around its scan body).  Without autograd
+    nothing is kept either way, and the values never change.  A segment
+    may also be a list of its groups' trees (``common.layer_of``)."""
+
+    def group_body(h, group, pattern):
+        for pos, kind in enumerate(pattern):
+            h = apply_layer(group[pos], cfg, kind, h, positions)
+        return h
+
+    body = C.remat(group_body, remat)
     for (pattern, n), seg_params in zip(segments_of(cfg), stack):
         for g in range(n):
-            group = tree_index(seg_params, g)
-            for pos, kind in enumerate(pattern):
-                x = apply_layer(group[pos], cfg, kind, x, positions)
+            x = body(x, C.layer_of(seg_params, g), pattern)
     return x
 
 

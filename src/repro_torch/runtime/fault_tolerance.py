@@ -12,7 +12,12 @@ checkpointer.  Failures are raised by the step function (a
 
 Straggler mitigation: a step exceeding ``deadline_factor x`` the rolling
 median is recorded and re-dispatched once, from the state before it, so
-every step applies exactly once (backup-task semantics).
+every step applies exactly once (backup-task semantics).  A step that
+writes into the state it is given (the port's trainer does: a 3B-parameter
+state has no room for a copy) has no state from before it left to
+re-dispatch from; its slow attempt returns tensors of that state, and
+then the attempt's result is kept and counted as a kept straggler, so
+the step still applies exactly once.
 """
 from __future__ import annotations
 
@@ -20,9 +25,12 @@ import dataclasses
 import time
 from typing import Callable
 
+import torch
+
 from repro_torch.checkpoint import (AsyncCheckpointer, latest_step,
                                     load_checkpoint)
 from repro_torch.telemetry import MetricsRegistry
+from repro_torch.tree import leaves_with_path
 
 
 class StepFailure(RuntimeError):
@@ -43,15 +51,24 @@ class SupervisorReport:
     steps_done: int = 0
     restarts: int = 0
     stragglers_redispatched: int = 0
+    stragglers_kept: int = 0
     heartbeats: int = 0
+
+
+def _storages(tree) -> set:
+    """The storage addresses of ``tree``'s non-empty tensor leaves."""
+    return {t.untyped_storage().data_ptr() for _, t in leaves_with_path(tree)
+            if isinstance(t, torch.Tensor) and t.numel()}
 
 
 class Supervisor:
     """Runs ``step_fn(state, step_idx) -> state, metrics`` with restart.
 
     ``state`` is a tree of tensors the checkpointer can write; a restore
-    puts its tensors on ``device`` (the CPU if None).  Restart, straggler
-    and heartbeat counts are mirrored into a telemetry registry
+    puts its tensors on ``device`` (the CPU if None).  A ``step_fn`` that
+    steps its state in place returns that state's tensors, and a slow
+    attempt of it is kept rather than re-dispatched (module docstring).
+    Restart, straggler and heartbeat counts are mirrored into a telemetry registry
     (``supervisor.*``; pass a shared one via ``metrics=``, else a fresh
     one is made) in lock-step with the :class:`SupervisorReport` that
     ``run()`` returns.
@@ -70,6 +87,7 @@ class Supervisor:
         self._m_restarts = self.metrics.counter("supervisor.restarts")
         self._m_stragglers = self.metrics.counter(
             "supervisor.stragglers_redispatched")
+        self._m_kept = self.metrics.counter("supervisor.stragglers_kept")
         self._m_heartbeats = self.metrics.counter("supervisor.heartbeats")
         self._m_steps = self.metrics.gauge("supervisor.steps_done")
         self._durations: list[float] = []
@@ -98,10 +116,17 @@ class Supervisor:
                 for i in range(start, num_steps):
                     t0 = time.monotonic()
                     deadline = self._deadline()
-                    pre_state = state      # a re-dispatch must NOT see the
-                    state, metrics = self.step_fn(pre_state, i)  # slow one
+                    pre_state = state
+                    state, metrics = self.step_fn(pre_state, i)
                     dt = time.monotonic() - t0
-                    if dt > deadline:
+                    if dt > deadline and _storages(state) & \
+                            _storages(pre_state):
+                        # straggler of a step in place: pre_state is the
+                        # stepped state, so a re-dispatch would apply step
+                        # i twice; the slow attempt's result is kept
+                        self.report.stragglers_kept += 1
+                        self._m_kept.inc()
+                    elif dt > deadline:
                         # straggler: one speculative re-dispatch from the
                         # PRE-step state; the slow attempt's result is
                         # discarded, so step i applies exactly once

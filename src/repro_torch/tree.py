@@ -28,6 +28,22 @@ def leaves_with_path(tree, prefix: str = "") -> Iterator[tuple[str, Any]]:
         yield from leaves_with_path(v, f"{prefix}/{k}" if prefix else str(k))
 
 
+def sorted_leaves(tree) -> Iterator[Any]:
+    """Every leaf of ``tree`` in the reference's order (``jax.tree.leaves``:
+    dict keys sorted, lists and tuples in order), where a sum over leaves
+    must add in the reference's order."""
+    if tree is None:
+        return
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from sorted_leaves(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from sorted_leaves(v)
+    else:
+        yield tree
+
+
 def map_with_path(fn: Callable[[str, Any], Any], tree, prefix: str = ""):
     """The tree with every leaf replaced by ``fn(path, leaf)``; dicts,
     lists, tuples and ``None`` keep their places."""

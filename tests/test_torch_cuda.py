@@ -797,3 +797,103 @@ def test_zoo_reduced_family_kernel_route(dev, name):
                             12 + i)
         equal(got, M.decode_step(packed, plain, tok, cache, 12 + i))
         logits, cache = got
+
+
+# ---------------------------------------------------------------------------
+# Training: a reduced step on the card against the CPU, and the deploy of
+# a binary-trained tree through K5 + K4
+# ---------------------------------------------------------------------------
+
+def _leaves_of(tree):
+    from repro_torch.tree import sorted_leaves
+    return list(sorted_leaves(tree))
+
+
+@pytest.mark.parametrize("mode", ["float", "binary"])
+def test_train_step_on_the_card_matches_the_cpu(dev, mode):
+    """One reduced starcoder2-3b step in float32 from the same state and
+    batch on the card and on the CPU: loss and gradient norm within rtol
+    1e-5, moments within 1e-4 of each value plus 1e-5 of the tree's
+    largest, params within 1e-6 where the gradient is above 1e-5 of the
+    largest (elsewhere it is float noise, which Adam's first step turns
+    into a bounded step of either sign: 2 lr (1 + 0.1 |p|) apart at
+    most)."""
+    import dataclasses
+    from repro_torch.data.synthetic import TokenStreamConfig, token_batch
+    from repro_torch.train import trainer as TR
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(configs.get_config(
+        "starcoder2-3b", quant=mode, reduced=True), dtype="float32")
+    tc = TR.TrainConfig(lr=1e-3, warmup=2, total_steps=10)
+    cpu = TR.init_train_state(torch.Generator().manual_seed(0), cfg, tc,
+                              device="cpu")
+    card = tree_map(lambda t: t.to(dev, copy=True), cpu)
+    batch = token_batch(TokenStreamConfig(cfg.vocab_size, 32, 4), 0, "cpu")
+    step = TR.make_train_step(cfg, tc)
+    card, mc = step(card, {k: v.to(dev) for k, v in batch.items()})
+    cpu, mh = step(cpu, batch)
+    for k in ("loss", "grad_norm", "lr"):
+        assert float(mc[k]) == pytest.approx(float(mh[k]), rel=1e-5), k
+    for k in ("mu", "nu"):
+        want = _leaves_of(cpu["opt"][k])
+        top = max(float(t.abs().max()) for t in want)
+        for g, w in zip(_leaves_of(card["opt"][k]), want):
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-4,
+                                       atol=1e-5 * top)
+    mu = _leaves_of(cpu["opt"]["mu"])
+    top = max(float(t.abs().max()) for t in mu)
+    for g, w, m in zip(_leaves_of(card["params"]), _leaves_of(cpu["params"]),
+                       mu):
+        d = (g.cpu() - w).abs()
+        held = m.abs() > 1e-5 * top
+        assert not bool(held.any()) or float(d[held].max()) <= 1e-6
+        assert bool((d <= 2 * tc.lr * (1 + 0.1 * w.abs()) + 1e-6).all())
+        if mode == "binary":
+            assert float(g.abs().max()) <= 1.0
+
+
+def test_binary_trained_deploy_launches_k5_k4_per_linear(dev):
+    """Reduced starcoder2-3b trained two steps in binary mode on the card,
+    packed there: prefill at (8, 16) and one decode step launch K5 and K4
+    once per packed linear (6 a layer and the head) and equal the plain
+    route."""
+    import dataclasses
+    from repro_torch.data.synthetic import TokenStreamConfig, token_batch
+    from repro_torch.models import linear as LN
+    from repro_torch.train import serve as SV
+    from repro_torch.train import trainer as TR
+    from repro_torch.tree import leaves_with_path, tree_map
+    cfg = configs.get_config("starcoder2-3b", quant="binary", reduced=True)
+    tc = TR.TrainConfig(lr=1e-2, warmup=1, total_steps=10)
+    state = TR.init_train_state(torch.Generator(device=dev).manual_seed(0),
+                                cfg, tc)
+    step = TR.make_train_step(cfg, tc)
+    dcfg = TokenStreamConfig(cfg.vocab_size, 16, 8)
+    for i in range(2):
+        state, m = step(state, token_batch(dcfg, i))
+        assert bool(torch.isfinite(m["loss"]))
+    packed = LN.maybe_pack_tree(state["params"], cfg.quant)
+    del state
+    n = sum(t.shape[:-2].numel() for p, t in leaves_with_path(packed)
+            if p.endswith("w_packed"))
+    assert n == 6 * cfg.num_layers + 1
+    plain = dataclasses.replace(cfg, quant=dataclasses.replace(
+        cfg.quant, backend="torch"))
+    toks = token_batch(dcfg, 5)["tokens"]
+    ops.reset_launch_counts()
+    logits, cache = SV.make_prefill_step(cfg, 32)(packed, {"tokens": toks})
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    assert counts == {"bitpack": n, "xnor_gemm": n}
+    want = SV.make_prefill_step(plain, 32)(packed, {"tokens": toks})
+    for (p, a), (_, b) in zip(leaves_with_path((logits, cache)),
+                              leaves_with_path(want)):
+        assert torch.equal(a, b), p
+    tok = logits[:, -1].float().argmax(-1, keepdim=True)
+    kcache = tree_map(torch.clone, cache)
+    ops.reset_launch_counts()
+    got = SV.make_decode_step(cfg)(packed, kcache, tok, 16)
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    assert counts == {"bitpack": n, "xnor_gemm": n}
+    want = SV.make_decode_step(plain)(packed, cache, tok, 16)
+    for (p, a), (_, b) in zip(leaves_with_path(got), leaves_with_path(want)):
+        assert torch.equal(a, b), p

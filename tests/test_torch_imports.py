@@ -59,6 +59,13 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.models.moe", "repro_torch.models.ssm",
             "repro_torch.models.rglru", "repro_torch.models.encdec",
             "repro_torch.models.model"} <= set(names)
+    # and the training half's: the optimizers, the data stream, the
+    # trainer and its launcher
+    assert {"repro_torch.optim", "repro_torch.optim.adamw",
+            "repro_torch.optim.compress", "repro_torch.optim.schedule",
+            "repro_torch.data", "repro_torch.data.synthetic",
+            "repro_torch.train.trainer",
+            "repro_torch.launch.train"} <= set(names)
     assert leaked == []
 
 
@@ -76,7 +83,7 @@ def test_port_sources_name_no_jax_or_reference_import():
     reaches when they run."""
     files = [os.path.join(REPO, n)
              for n in ("chip_smoke.py", "chip_conv_tiles.py",
-                       "chip_attention_times.py")]
+                       "chip_attention_times.py", "chip_train_profile.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     bad = [(f, m) for f in files for m in _imports(f)
