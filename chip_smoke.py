@@ -105,7 +105,20 @@ Phases, each printing its lines:
    ``maybe_pack_tree`` and served: a (8, 16) prefill and a decode step,
    each launching K5 = K4 = the tree's packed linears (181) and equal to
    the plain route; the STE gradients of ``BCNNSpec()`` and
-   ``BMLPSpec()`` at batch 8, card against CPU.
+   ``BMLPSpec()`` at batch 8, card against CPU;
+10. sharded training (``make_train_step(..., mesh=)``,
+   ``distributed/fsdp.py``), every mesh position on the one card:
+   starcoder2-3b at its published widths and depth, (4, 512), seed 0,
+   one step each in ``float`` on (2, 2) and (4, 1) and in ``binary`` on
+   (2, 2), FSDP, each from the same state and batch as an unsharded step
+   and held to it (a data split is a microbatch split: phase 9's
+   bounds), (4, 1) also to ``microbatches=4``, which takes the same row
+   slices; every position's resident bytes against the specs' reckoning,
+   the counted gathers, reductions and partial sums against
+   ``fsdp.step_traffic``, ms a step, tokens/s and the peak beside the
+   reckoning; the (2, 2)-trained binary tree made whole, packed and
+   served (K5 = K4 = 181, equal to the plain route); gemma2-9b's
+   per-position bytes on (2, 2), (4, 1) and 16 x 16 from the dry run.
 
 Every kernel is held to its plain version exactly, but for the attention
 kernel (K8), whose float softmax is held within rtol = atol = 2e-5 (the
@@ -3108,6 +3121,277 @@ def phase9_training(drv, dev) -> dict:
         raise AssertionError(f"train: {failed} failed (logged above)")
     return out
 
+# Phase 10: sharded training (``trainer.make_train_step(..., mesh=)``),
+# every position of each mesh on the one card.  starcoder2-3b at phase
+# 9's published widths and depth, (B, S) = TRAIN_BATCH, seed 0, FSDP
+# (``param_specs`` with fsdp=True, the reference's launcher's specs).
+# Each sharded step is held to the unsharded step from the same state and
+# batch: the data slices are microbatches of it, so phase 9's microbatch
+# bounds hold (loss rtol 1e-3, grad_norm rtol 1e-4, mu within
+# MICRO_MU[bfloat16] of each leaf's largest).  (4, 1) takes the same row
+# slices as microbatches=4 and the same weights, gathered: held to it
+# within SAME_ROWS.  The first chip reading (H100, PERF.md): loss equal,
+# grad_norm rtol 1.0e-07 (partial sums of four slices in another order),
+# mu 2.3e-07 of a leaf's largest (the clip scale 1 / grad_norm moves
+# with the norm); the bounds leave 4-10x of it.  Each run's second step
+# is timed warm: the first carries the new shapes' first launches.
+TRAIN_MESHES = (("float", (2, 2)), ("float", (4, 1)), ("binary", (2, 2)))
+SAME_ROWS = dict(loss_rtol=1e-6, norm_rtol=1e-6, mu=1e-6)
+TRAIN_SIZES = {"gemma2-9b": ((2, 2), (4, 1))}
+
+
+def host_leaves(tree) -> dict:
+    from repro_torch.tree import leaves_with_path
+    return {p: t.cpu() for p, t in leaves_with_path(tree)}
+
+
+def unsharded_step(cfg, tc, dev, batch) -> dict:
+    """One unsharded step from a fresh state: loss, grad_norm, mu on the
+    host (the sharded runs rebuild the state: two do not fit)."""
+    import torch
+    from repro_torch.train import trainer as TR
+    free_card()
+    state = fresh_state(cfg, tc, dev)
+    e0, e1 = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    e0.record()
+    state, m = TR.make_train_step(cfg, tc)(state, batch)
+    e1.record()
+    torch.cuda.synchronize()
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "ms": e0.elapsed_time(e1), "mu": host_leaves(state["opt"]["mu"])}
+    del state
+    free_card()
+    return out
+
+
+def mu_gap(placed_mu, host_mu, dev) -> tuple[float, int]:
+    """(largest |mu - reference mu| over each leaf's largest reference
+    value, elements past MICRO_NEAR of the value plus MICRO_NEAR of the
+    largest), copy by copy of every placed leaf against the reference's
+    slice."""
+    from repro_torch.tree import leaves_with_path
+    worst, far = 0.0, 0
+    for path, pl in leaves_with_path(placed_mu):
+        copies = pl.copies()
+        top = max(float(host_mu[path][idx].to(dev).abs().max())
+                  for _, idx, _ in copies)
+        leaf = 0.0
+        for t, idx, _ in copies:
+            ref = host_mu[path][idx].to(dev)
+            d = (t - ref).abs()
+            far += int((d > MICRO_NEAR * (ref.abs() + top)).sum())
+            leaf = max(leaf, float(d.max()))
+            del ref, d
+        worst = max(worst, leaf / max(top, 1e-30))
+    return worst, far
+
+
+def sharded_run(what, cfg, tc, shape, dev, batch, check
+                ) -> tuple[dict, list, dict]:
+    """A fresh full-width state placed on a ``shape`` mesh of the one card
+    by ``trainer.state_specs``, one step: the resident bytes of every
+    position against the specs' reckoning, the card's allocation against
+    the distinct copies, the counted traffic against ``step_traffic``, ms,
+    tokens/s, the peak; ``check(readings, state)`` after it (its
+    failures are returned); then a second step on the stream's next
+    batch, timed warm.  Returns (the readings, the failures, the state
+    after both steps)."""
+    import torch
+    from repro_torch import telemetry
+    from repro_torch.data.synthetic import TokenStreamConfig, token_batch
+    from repro_torch.distributed import fsdp as FS
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import common as C
+    from repro_torch.models import model as M
+    from repro_torch.train import trainer as TR
+    from repro_torch.tree import leaves_with_path
+    free_card()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_host_mesh(*shape, device=dev.type)
+    state = fresh_state(cfg, tc, dev)
+    specs = TR.state_specs(state, mesh)
+    state = SH.Shardings(mesh, specs).place(state, donate=True)
+    torch.cuda.synchronize()
+    placed_bytes = torch.cuda.memory_allocated() - base
+    # the reckoning from shapes alone: a meta state, its specs
+    meta = M.init_model(C.MetaGenerator(), cfg, device="meta")
+    mstate = {"params": meta, "opt": {"mu": meta, "nu": meta,
+                                      "step": torch.empty((), dtype=torch.int32,
+                                                          device="meta")}}
+    mspecs = TR.state_specs(mstate, mesh)
+    reckon = SH.position_bytes(mstate, mspecs, mesh)
+    held = [sum(leaf.nbytes(i) for _, leaf in leaves_with_path(state))
+            for i in range(mesh.size)]
+    if held != reckon:
+        raise AssertionError(f"train {what}: positions hold {held} bytes, "
+                             f"the specs reckon {reckon}")
+    sizes = [t.numel() * t.element_size()
+             for _, leaf in leaves_with_path(state)
+             for t, _, _ in leaf.copies()]
+    distinct = sum(sizes)
+    # the caching allocator rounds every block up to 512 bytes
+    blocks = sum(-(-n // 512) * 512 for n in sizes)
+    if abs(placed_bytes - blocks) > (1 << 20):
+        raise AssertionError(f"train {what}: {placed_bytes} bytes allocated "
+                             f"for the placed state, {blocks} in the blocks "
+                             f"of its distinct copies")
+    want = FS.step_traffic(meta, SH.param_specs(meta, mesh), mesh,
+                           microbatches=tc.microbatches,
+                           compress=tc.compress_grads,
+                           grads_bf16=tc.grads_bf16)
+    metrics = telemetry.default().metrics
+    before = {k: metrics.value(k) for k in FS.COUNTERS}
+    step = TR.make_train_step(cfg, tc, mesh=mesh)
+    e0, e1 = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    e0.record()
+    state, m = step(state, batch)
+    e1.record()
+    torch.cuda.synchronize()
+    got = {k: metrics.value(k) - before[k] for k in FS.COUNTERS}
+    if got != want:
+        raise AssertionError(f"train {what}: counted {got}, reckoned {want}")
+    ms = e0.elapsed_time(e1)
+    peak = torch.cuda.max_memory_allocated() - base
+    n = sum(t.numel() for _, t in leaves_with_path(meta))
+    reck = train_reckoning(n, tc)
+    b, s = TRAIN_BATCH
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "lr": float(m["lr"]), "ms": ms, "tokens_per_s": b * s / ms * 1e3,
+           "peak": peak, "reckon": reck["total"], "held": held[0],
+           "traffic": got}
+    log(f"train {what}: loss {out['loss']:.7g} grad_norm "
+        f"{out['grad_norm']:.7g}; {ms:.6g} ms a step ({out['tokens_per_s']:.6g}"
+        f" tokens/s); every position holds {held[0]} bytes = the specs' "
+        f"reckoning; {distinct} bytes of distinct copies on the card "
+        f"({placed_bytes} allocated, {blocks} in 512-byte blocks); "
+        f"peak {peak} bytes (max_memory_allocated above the {base} held "
+        f"before) against the reckoning {reck['total']} {reck} "
+        f"({peak - reck['total']:+d} bytes: gathered layers, activations, "
+        f"the loss chunk, temporaries); traffic {got} = step_traffic")
+    failed = check(out, state)
+    batch2 = token_batch(TokenStreamConfig(cfg.vocab_size, s, b), 1, dev)
+    e0.record()
+    state, m = step(state, batch2)
+    e1.record()
+    torch.cuda.synchronize()
+    out["ms_warm"] = e0.elapsed_time(e1)
+    log(f"train {what}: step 1, warm: loss {float(m['loss']):.7g}, "
+        f"{out['ms_warm']:.6g} ms ({b * s / out['ms_warm'] * 1e3:.6g} "
+        f"tokens/s)")
+    return out, failed, state
+
+
+def hold_to(what, got, ref, bounds, dev, placed_mu) -> list[str]:
+    """``got`` (a sharded run) against ``ref`` (an unsharded step): loss,
+    grad_norm and mu within ``bounds``; logs every figure, returns the
+    failures."""
+    worst, far = mu_gap(placed_mu, ref["mu"], dev)
+    l_r = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    n_r = abs(got["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"])
+    log(f"train {what}: loss {got['loss']:.8g} / {ref['loss']:.8g} (rtol "
+        f"{l_r:.3g}, bound {bounds['loss_rtol']}); grad_norm "
+        f"{got['grad_norm']:.8g} / {ref['grad_norm']:.8g} (rtol {n_r:.3g}, "
+        f"bound {bounds['norm_rtol']}); mu max abs diff {worst:.3g} of its "
+        f"leaf's largest (bound {bounds['mu']}), {far} elements past "
+        f"{MICRO_NEAR} of the value plus {MICRO_NEAR} of the largest")
+    if l_r > bounds["loss_rtol"] or n_r > bounds["norm_rtol"] or \
+            worst > bounds["mu"]:
+        return [what]
+    return []
+
+
+def dryrun_sizes() -> None:
+    """gemma2-9b's per-position bytes of its train state on (2, 2), (4, 1)
+    and the production mesh, from the specs (the dry run's reckoning):
+    148 GB of state cannot run on one card."""
+    from repro_torch import configs
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import common as C
+    from repro_torch.models import model as M
+    for name, shapes in TRAIN_SIZES.items():
+        cfg = configs.get_config(name)
+        meta = M.init_model(C.MetaGenerator(), cfg, device="meta")
+        for shape in shapes:
+            mesh = make_host_mesh(*shape)
+            p = max(SH.position_bytes(meta, SH.param_specs(meta, mesh),
+                                      mesh))
+            log(f"train {name} on {shape} (FSDP), from the specs: float32 "
+                f"params {p} bytes a position, mu + nu {2 * p}, gradient "
+                f"accumulators {p}: {4 * p} bytes a position in all")
+            if shape == (2, 2) and abs(p - 9.242e9) > 0.001e9:
+                raise AssertionError(f"{name} (2, 2): {p} bytes, not 9.242e9")
+        rec = DR.run_cell(name, "train_4k")
+        log(f"train {name} train_4k on {rec['mesh']} (dry run): "
+            f"{rec['bytes_per_position']} bytes a position, "
+            f"{rec['bytes_per_position_total']} in all, fits 80 GB "
+            f"{rec['fits_hbm']}; step traffic {rec['step_traffic']}")
+
+
+def phase10_sharded(drv, dev) -> dict:
+    """Phase 10: sharded training on meshes of the one card, its deploy,
+    the sizes that do not fit."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.data.synthetic import TokenStreamConfig, token_batch
+    from repro_torch.distributed import sharding as SH
+    b, s = TRAIN_BATCH
+    out, failed = {}, []
+    micro = {**MICRO_TOL, "mu": MICRO_MU["bfloat16"]}
+    for mode in ("float", "binary"):
+        cfg = configs.get_config(TRAIN_LM, quant=None if mode == "float"
+                                 else mode)
+        batch = token_batch(TokenStreamConfig(cfg.vocab_size, s, b), 0, dev)
+        tc = train_config(warmup=1)
+        shapes = [sh for m, sh in TRAIN_MESHES if m == mode]
+        # the references first, their mu on the host: a second state does
+        # not fit beside a sharded one
+        refs = {1: unsharded_step(cfg, tc, dev, batch)}
+        if (4, 1) in shapes:
+            refs[4] = unsharded_step(
+                cfg, dataclasses.replace(tc, microbatches=4), dev, batch)
+        for n, r in refs.items():
+            log(f"train sharded {mode}: the unsharded step, microbatches="
+                f"{n}, loss {r['loss']:.8g} grad_norm {r['grad_norm']:.8g}, "
+                f"{r['ms']:.6g} ms")
+        for shape in shapes:
+            what = f"sharded {mode} {shape}"
+
+            def check(got, state, what=what, shape=shape):
+                mu = state["opt"]["mu"]
+                bad = hold_to(f"{what} against the unsharded step", got,
+                              refs[1], micro, dev, mu)
+                if shape == (4, 1):
+                    bad += hold_to(f"{what} against microbatches=4", got,
+                                   refs[4], SAME_ROWS, dev, mu)
+                return bad
+
+            got, bad, state = sharded_run(what, cfg, tc, shape, dev, batch,
+                                          check)
+            failed += bad
+            out[what] = got
+            if mode == "binary" and shape == (2, 2):
+                state.pop("opt")
+                params = SH.unshard(state.pop("params"), dev)
+                del state
+                free_card()
+                out["deploy"] = deploy_trained(drv, cfg, params, dev)
+                del params
+            else:
+                del state
+            free_card()
+        del refs
+    dryrun_sizes()
+    if failed:
+        raise AssertionError(f"train sharded: {failed} failed (logged above)")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3358,6 +3642,14 @@ def main() -> int:
     phase9_training(drv, dev)
     log(f"train: {time.perf_counter() - t0:.1f} s; launches in all, phases "
         f"4-9 {launches}")
+
+    # 10. sharded training: starcoder2-3b on (2, 2) and (4, 1) meshes of
+    # the one card, its deploy
+    free_card()
+    t0 = time.perf_counter()
+    phase10_sharded(drv, dev)
+    log(f"train sharded: {time.perf_counter() - t0:.1f} s; launches in "
+        f"all, phases 4-10 {launches}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     kernels = []

@@ -10,7 +10,9 @@ boundary, and nowhere in a tree.  A ``uint32`` array on disk is packed
 words, which the port keeps as ``int32`` tensors with the same bits: it
 loads as such a tensor (``checkpoint.packed`` writes a packed tree's
 words as ``uint32``, as the reference does), so a checkpoint written by
-either package loads in the other.
+either package loads in the other.  A tree placed on a mesh
+(``distributed.sharding.Placed`` leaves) is written whole, in the same
+layout, so a checkpoint also crosses meshes.
 """
 from __future__ import annotations
 
@@ -23,10 +25,13 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import Placed
 from repro_torch.tree import leaves_with_path, map_with_path
 
 
 def _to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, Placed):
+        leaf = leaf.to_host()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
@@ -71,16 +76,25 @@ def latest_step(ckpt_dir: str) -> int | None:
 
 
 def load_checkpoint(ckpt_dir: str, step: int, template,
-                    device=None) -> tuple:
+                    device=None, shardings=None) -> tuple:
     """Restore into the structure of ``template``: ``(tree, meta)``, each
-    leaf a tensor on ``device`` (the CPU if None)."""
+    leaf a tensor on ``device`` (the CPU if None) or, with ``shardings``
+    (a ``distributed.sharding.Shardings``: a mesh and ``{path: spec}``),
+    placed on that mesh a leaf at a time, each position's slice cut on
+    the host and only the slice moved (reshard on restore: a checkpoint
+    written on one mesh, or by either package, loads on any)."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
+
+    def load(data, key):
+        t = _to_tensor(data[key])
+        if shardings is not None:
+            return shardings.place_leaf(key, t)
+        return t.to(device or "cpu")
+
     with np.load(os.path.join(path, "arrays.npz")) as data:
-        tree = map_with_path(
-            lambda key, _: _to_tensor(data[key]).to(device or "cpu"),
-            template)
+        tree = map_with_path(lambda key, _: load(data, key), template)
     return tree, meta
 
 
@@ -101,9 +115,14 @@ class AsyncCheckpointer:
 
     def save(self, step: int, tree, extra: dict | None = None) -> None:
         self.wait()
-        host_tree = map_with_path(                  # snapshot on the host
-            lambda _, leaf: leaf.detach().cpu().clone()
-            if isinstance(leaf, torch.Tensor) else leaf, tree)
+        def snapshot(_, leaf):                      # on the host
+            if isinstance(leaf, Placed):
+                return leaf.to_host()
+            if isinstance(leaf, torch.Tensor):
+                return leaf.detach().cpu().clone()
+            return leaf
+
+        host_tree = map_with_path(snapshot, tree)
 
         def work():
             try:

@@ -3,7 +3,7 @@
 Every registry architecture is a frozen ``ArchConfig``; reduced smoke
 variants come from ``ArchConfig.reduced()``.  The paper's binary
 technique plugs in through ``quant`` (``core/quantize.py``).  The fields,
-their defaults and ``reduced()`` are the reference's
+their defaults, ``reduced()`` and ``param_counts()`` are the reference's
 (``src/repro/configs/base.py``), so a config here and one there describe
 the same shapes.
 """
@@ -125,3 +125,65 @@ class ArchConfig:
         if self.rglru:
             changes["rglru"] = replace(self.rglru, lru_width=64)
         return replace(self, **changes)
+
+    # ---- parameter counting (the dry run's FLOPs, ``should_fsdp``) -------
+    def param_counts(self) -> dict[str, float]:
+        """{"total", "active", "body_total", "body_active"}: parameters
+        of the whole model and of the layer stack alone, "active" counting
+        only the experts a token runs through; the reference's formula,
+        value for value."""
+        d, f, L = self.d_model, self.d_ff, self.num_layers
+        hq, hkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
+        attn_p = d * hd * (hq + 2 * hkv) + hq * hd * d
+        if self.ffn_type in ("swiglu", "geglu"):
+            ffn_p = 3 * d * f
+        elif self.ffn_type == "none":
+            ffn_p = 0
+        else:
+            ffn_p = 2 * d * f
+        n_attn_layers = sum(1 for i in range(L)
+                            if self.layer_kind(i) in ("global", "local"))
+        n_rec_layers = L - n_attn_layers
+        if self.ssm:
+            s = self.ssm
+            d_in = s.expand * d
+            nheads = d_in // s.head_dim
+            ssm_p = (d * (2 * d_in + 2 * s.ngroups * s.d_state + nheads)
+                     + d_in * d)
+            total = active = L * ssm_p
+        elif self.rglru:
+            w = self.rglru.lru_width or d
+            rec_p = 2 * d * w + w * d + 2 * w * w  # gates + in/out proj
+            total = active = (n_attn_layers * (attn_p + ffn_p)
+                              + n_rec_layers * (rec_p + ffn_p))
+        elif self.moe:
+            m = self.moe
+            if self.ffn_type in ("swiglu", "geglu"):
+                e_p = 3 * d * m.d_ff_expert
+            else:
+                e_p = 2 * d * m.d_ff_expert
+            router_p = d * m.num_experts
+            total = L * (attn_p + router_p
+                         + (m.num_experts + m.shared_experts) * e_p)
+            active = L * (attn_p + router_p
+                          + (m.top_k + m.shared_experts) * e_p)
+        else:
+            total = active = L * (attn_p + ffn_p)
+        if self.encoder_layers:
+            enc = self.encoder_layers * (attn_p + ffn_p)
+            cross = L * (d * hd * (hq + 2 * hkv) + hq * hd * d)
+            total += enc + cross
+            active += enc + cross
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return {"total": float(total + emb), "active": float(active + emb),
+                "body_total": float(total), "body_active": float(active)}
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input shape of the dry run: ``seq_len`` x ``global_batch``
+    through the step of ``kind`` ('train' | 'prefill' | 'decode')."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str

@@ -77,7 +77,9 @@ def arch_config(ref_cfg) -> ArchConfig:
             fields[name] = kind(**dataclasses.asdict(fields[name]))
     q = ref_cfg.quant
     fields["quant"] = QuantConfig(
-        mode=QuantMode(q.mode.value), strategy=GemmStrategy(q.strategy.value))
+        mode=QuantMode(q.mode.value), strategy=GemmStrategy(q.strategy.value),
+        binarize_embeddings=q.binarize_embeddings,
+        binarize_lm_head=q.binarize_lm_head)
     return ArchConfig(**fields)
 
 

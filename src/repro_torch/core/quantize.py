@@ -49,7 +49,20 @@ XNOR_MAX_ROWS = 256
 class QuantConfig:
     mode: QuantMode = QuantMode.FLOAT
     strategy: GemmStrategy = GemmStrategy.AUTO
+    # The reference's knobs for binarizing the embeddings and the LM head
+    # (BinaryNet binarizes every layer; LMs keep both float).  Neither
+    # package's models binarize either, so only False is accepted: a
+    # config crosses between the packages, and none claims what the
+    # models do not do.
+    binarize_embeddings: bool = False
+    binarize_lm_head: bool = False
     backend: str = "auto"
+
+    def __post_init__(self):
+        for name in ("binarize_embeddings", "binarize_lm_head"):
+            if getattr(self, name):
+                raise ValueError(f"QuantConfig.{name}=True: the models keep "
+                                 f"the embeddings and the LM head float")
 
     def resolve_strategy(self, m: int, n: int, k: int) -> GemmStrategy:
         """The ``AUTO`` rule: up to ``XNOR_MAX_ROWS`` rows of activations

@@ -1,13 +1,34 @@
-"""The packed BCNN and BMLP forward over a (data, model) mesh.
+"""Sharding rules and placement over a (pod, data, model) mesh, driven
+from one process: the reference's ``src/repro/distributed/sharding.py``,
+both halves, single-controller as the reference is.  One process holds
+the mesh (``launch.mesh.Mesh``) and drives every position; a tensor
+placed on a mesh is a :class:`Placed`, each position's slice on that
+position's device.  Specs are tuples, an axis name (or a tuple of names,
+or None) per dim, the reference's ``PartitionSpec`` objects; ``_fit`` drops
+every assignment whose mesh size does not divide its dim, so a small
+model replicates instead of failing.
 
-The packed half of the reference's ``src/repro/distributed/sharding.py``
-(``:334–635``), single-controller as the reference is: one process holds
-the mesh (``launch.mesh.Mesh``) and drives every position.  Where the
-reference's ``shard_map`` runs the forward once per device, the port's
-:class:`ShardedForward` runs it once per mesh position, each position on
-its own device with its own slice of the packed tree and of the batch.
+Logical axes: ``pod`` (outer data-parallel), ``data`` (data-parallel and
+FSDP), ``model`` (tensor and expert parallel).
 
-Sharding rules (the reference's, path by path):
+The LM half (``:71-305`` there):
+
+* :func:`param_specs` matches each leaf's path against ``_PARAM_RULES``
+  (column-parallel projections shard d_out over ``model``, row-parallel
+  d_in, experts E, embeddings the vocab; FSDP one other large dim over
+  ``data``; packed inference words and scales as well), ``{path:
+  spec}``; :func:`drop_fsdp` and :func:`should_fsdp` (18 B a parameter
+  against the card's memory) choose ZeRO-0 instead;
+* :func:`batch_specs`, :func:`cache_specs`, :func:`logical_activation_spec`
+  for batches, decode caches and activations;
+* :class:`Shardings` places a tree by its specs, slicing each tensor on
+  its own device (the reference's ``param_shardings(params, mesh)`` is
+  ``Shardings(mesh, param_specs(params, mesh)).place(params)``).  The train
+  step over the placed state, whose gathers and reductions the port
+  writes out where the reference leaves them to GSPMD, is
+  ``train/trainer.py`` with ``distributed/fsdp.py``.
+
+The packed half (``:334-635`` there), for the packed BCNN and BMLP:
 
 * The batch shards over ``data``; packed activations are batch-sharded
   over ``data`` and replicated over ``model``.
@@ -25,9 +46,7 @@ Sharding rules (the reference's, path by path):
   stages' packed words along the last axis (``models.cnn``), never an
   int32 partial sum; a mesh with ``|model| = 1`` gathers nothing.
 
-The LM and training half (``param_specs``, ``batch_specs``,
-``cache_specs``) waits for the port's training stack; XLA's
-``ShardedForward.lower`` has no counterpart here.
+XLA's ``ShardedForward.lower`` has no counterpart here.
 """
 from __future__ import annotations
 
@@ -85,6 +104,220 @@ def _fit(mesh: Mesh, spec: tuple, shape: tuple[int, ...]) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# Parameter rules (the LM half)
+# ---------------------------------------------------------------------------
+
+# (regex on the '/'-joined path, spec of the UNSTACKED leaf): a leading
+# axis of layers stacked over depth gets None prepended.  The reference's
+# table as it stands.
+_PARAM_RULES: list[tuple[str, tuple]] = [
+    # attention projections (column-parallel qkv, row-parallel o)
+    (r"attn/wq/w$",      ("data", "model")),
+    (r"attn/wk/w$",      ("data", "model")),
+    (r"attn/wv/w$",      ("data", "model")),
+    (r"attn/wo/w$",      ("model", "data")),
+    (r"xattn/wq/w$",     ("data", "model")),
+    (r"xattn/wk/w$",     ("data", "model")),
+    (r"xattn/wv/w$",     ("data", "model")),
+    (r"xattn/wo/w$",     ("model", "data")),
+    # dense FFN
+    (r"mlp/w_up/w$",     ("data", "model")),
+    (r"mlp/w_gate/w$",   ("data", "model")),
+    (r"mlp/w_down/w$",   ("model", "data")),
+    (r"shared/w_up/w$",  ("data", "model")),
+    (r"shared/w_gate/w$", ("data", "model")),
+    (r"shared/w_down/w$", ("model", "data")),
+    # MoE experts: E over model (expert parallelism), FSDP over data
+    (r"mlp/router/w$",   (None, None)),
+    (r"mlp/we_up/we$",   ("model", "data", None)),      # (E, D, F)
+    (r"mlp/we_gate/we$", ("model", "data", None)),
+    (r"mlp/we_down/we$", ("model", None, "data")),
+    # RG-LRU (width shards over model; elementwise recurrence)
+    (r"rec/w_gelu/w$",   ("data", "model")),
+    (r"rec/w_rec_in/w$", ("data", "model")),
+    (r"rec/wa/w$",       ("data", "model")),
+    (r"rec/wx/w$",       ("data", "model")),
+    (r"rec/conv_w$",     (None, "model")),
+    (r"rec/conv_b$",     ("model",)),
+    (r"rec/ba$",         ("model",)),
+    (r"rec/bx$",         ("model",)),
+    (r"rec/lambda_p$",   ("model",)),
+    (r"rec/w_out/w$",    ("model", "data")),
+    # Mamba-2, fused form: FSDP only (the in-projection interleaves five
+    # blocks on one axis, which a 'model' split would cut across)
+    (r"ssm/in_proj/w$",  ("data", None)),
+    (r"ssm/out_proj/w$", (None, "data")),
+    # Mamba-2, split form: d_inner/heads over 'model'; B/C/dt replicate
+    (r"ssm/[zx]_proj/w$",   ("data", "model")),
+    (r"ssm/(b|c|dt)_proj/w$", ("data", None)),
+    (r"ssm/conv_w_x$",   (None, "model")),
+    (r"ssm/conv_b_x$",   ("model",)),
+    (r"ssm/norm_tp/scale$", ("model",)),
+    (r"ssm/out_proj_tp/w$", ("model", "data")),
+    (r"ssm/.*",          (None,)),
+    # embeddings / head: vocab over model
+    (r"embed/table$",    ("model", "data")),
+    (r"head/w$",         ("data", "model")),
+    (r"dec_pos$",        (None, None)),
+    # packed (1-bit) inference weights: (d_out, kw) — column-parallel
+    # shard d_out; row-parallel shard the packed-word (d_in) axis.
+    (r"attn/w[qkv]/w_packed$", ("model", "data")),
+    (r"attn/wo/w_packed$",     ("data", "model")),
+    (r"xattn/w[qkv]/w_packed$", ("model", "data")),
+    (r"xattn/wo/w_packed$",    ("data", "model")),
+    (r"mlp/w_(up|gate)/w_packed$", ("model", "data")),
+    (r"mlp/w_down/w_packed$",  ("data", "model")),
+    (r"head/w_packed$",        ("model", "data")),
+    (r"attn/w[qkv]/alpha$",    ("model",)),
+    (r"attn/wo/alpha$",        (None,)),
+    (r"mlp/w_(up|gate)/alpha$", ("model",)),
+    (r"mlp/w_down/alpha$",     (None,)),
+    (r"head/alpha$",           ("model",)),
+    (r"w_packed$",             (None, None)),   # fallback: replicate
+    (r"alpha$",                (None,)),
+]
+
+# The card's memory: one H100 80GB HBM3 (``should_fsdp``'s default and
+# the dry run's fit test).  The reference's 16e9 is a TPU's HBM.
+HBM_BYTES = 80e9
+
+
+def drop_fsdp(spec: tuple) -> tuple:
+    """ZeRO-0: replicate over 'data' (weights and optimizer state fit a
+    position), keep 'model'.  The step then reduces gradients instead of
+    gathering weights per layer."""
+    return tuple(None if ax == "data" else ax for ax in spec)
+
+
+def _ndim(leaf) -> int:
+    return getattr(leaf, "ndim", 0)
+
+
+def param_specs(params: Any, mesh: Mesh, *, fsdp: bool = True,
+                replicate_embed: bool = False) -> dict[str, tuple]:
+    """{path: spec} for every leaf of a model or optimizer params tree
+    (tensors of any device, meta included), one entry per dim.
+
+    ``fsdp=False`` replicates over 'data' (ZeRO-0, :func:`should_fsdp`);
+    ``replicate_embed=True`` replicates the embedding table (a
+    vocab-sharded table makes every lookup a masked gather)."""
+    out = {}
+    for pstr, leaf in leaves_with_path(params):
+        if _ndim(leaf) == 0:
+            out[pstr] = ()
+            continue
+        if replicate_embed and re.search(r"embed/table$", pstr):
+            out[pstr] = ()
+            continue
+        # the matching rule of the highest rank that fits the leaf
+        # (an MoE expert's 3-d rule over a dense 2-d one)
+        chosen = None
+        for pat, spec in _PARAM_RULES:
+            if re.search(pat, pstr) and len(spec) <= leaf.ndim:
+                if chosen is None or len(spec) > len(chosen):
+                    chosen = spec
+        if chosen is None:
+            out[pstr] = ()
+            continue
+        if not fsdp:
+            chosen = drop_fsdp(chosen)
+        full = (None,) * (leaf.ndim - len(chosen)) + tuple(chosen)
+        out[pstr] = _fit(mesh, full, tuple(leaf.shape))
+    return out
+
+
+def should_fsdp(cfg, mesh: Mesh, *, hbm_bytes: float = HBM_BYTES,
+                budget: float = 0.6) -> bool:
+    """Keep FSDP only where the state replicated over 'data' would pass
+    ``budget`` of a position's memory: total params / |model| x 18 B (4
+    float32 master, 8 Adam, 2 bfloat16 copy, 4 gradient).  ``hbm_bytes``
+    defaults to the H100's 80 GB (:data:`HBM_BYTES`); the reference's
+    default, 16e9, is a TPU's HBM, so the two packages decide alike only
+    where the caller passes the same figure."""
+    tp = _axis_size(mesh, "model") or 1
+    total = cfg.param_counts()["total"]
+    return total / tp * 18.0 > budget * hbm_bytes
+
+
+# ---------------------------------------------------------------------------
+# Batches, caches, activations
+# ---------------------------------------------------------------------------
+
+def batch_specs(batch_like: Any, mesh: Mesh, *,
+                shard_seq: bool = False) -> dict[str, tuple]:
+    """{path: spec} of an input batch: the batch dim over (pod, data); with
+    ``shard_seq`` the sequence dim instead (long context, batch 1)."""
+    out = {}
+    for pstr, leaf in leaves_with_path(batch_like):
+        nd = _ndim(leaf)
+        if nd == 0:
+            out[pstr] = ()
+        elif shard_seq and nd >= 2:
+            out[pstr] = _fit(mesh, (None, DATA_AXES) + (None,) * (nd - 2),
+                             tuple(leaf.shape))
+        else:
+            out[pstr] = _fit(mesh, (DATA_AXES,) + (None,) * (nd - 1),
+                             tuple(leaf.shape))
+    return out
+
+
+def cache_specs(cache: Any, mesh: Mesh, *, shard_seq: bool = False,
+                kv_layout: str = "batch_heads") -> dict[str, tuple]:
+    """{path: spec} of a decode cache: attention K/V (..., B, S, H, D),
+    recurrent states (L, B, ...).
+
+    ``kv_layout``: ``'batch_heads'`` puts the batch over (pod, data) and
+    the heads over 'model'; ``'seq_model'`` the batch over (pod, data) and
+    S over 'model' (GQA head counts rarely divide the model degree, S
+    does).  ``shard_seq``: S over (pod, data) too (batch 1, long
+    context)."""
+    out = {}
+    for pstr, leaf in leaves_with_path(cache):
+        nd = _ndim(leaf)
+        shape = tuple(getattr(leaf, "shape", ()))
+        if nd == 0:
+            out[pstr] = ()
+        elif re.search(r"(^|/)(k|v)$", pstr) and nd >= 4:
+            lead = (None,) * (nd - 4)
+            if shard_seq:
+                spec = lead + (None, DATA_AXES, "model", None)
+            elif kv_layout == "seq_model":
+                spec = lead + (DATA_AXES, "model", None, None)
+            else:
+                spec = lead + (DATA_AXES, None, "model", None)
+            out[pstr] = _fit(mesh, spec, shape)
+        elif re.search(r"(k|v)_scale$", pstr) and nd >= 3:
+            # int8 K/V scales (..., B, S, H): the K/V layout without D
+            lead = (None,) * (nd - 3)
+            if shard_seq:
+                spec = lead + (None, DATA_AXES, "model")
+            elif kv_layout == "seq_model":
+                spec = lead + (DATA_AXES, "model", None)
+            else:
+                spec = lead + (DATA_AXES, None, "model")
+            out[pstr] = _fit(mesh, spec, shape)
+        elif nd >= 3:
+            # stacked recurrent states (L, B, ...): the batch is axis 1
+            out[pstr] = _fit(mesh, (None, DATA_AXES) + (None,) * (nd - 2),
+                             shape)
+        elif nd == 2:
+            out[pstr] = _fit(mesh, (DATA_AXES, None), shape)
+        else:
+            out[pstr] = ()
+    return out
+
+
+def logical_activation_spec(mesh: Mesh, ndim: int, *,
+                            shard_seq: bool = False) -> tuple:
+    """The spec of an activation of ``ndim`` dims: the batch over (pod,
+    data), or with ``shard_seq`` the sequence."""
+    big = (1 << 30,) * ndim
+    if shard_seq:
+        return _fit(mesh, (None, DATA_AXES) + (None,) * (ndim - 2), big)
+    return _fit(mesh, (DATA_AXES,) + (None,) * (ndim - 1), big)
+
+
+# ---------------------------------------------------------------------------
 # Shard plans and per-leaf specs
 # ---------------------------------------------------------------------------
 
@@ -118,11 +351,12 @@ def bmlp_shard_plan(packed: Any, mesh: Mesh) -> dict:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Placed:
-    """One tensor of a packed tree placed on a mesh by :func:`shard_packed`:
-    its spec (an axis name or None per dim, trailing Nones dropped), its
-    global shape, the mesh, and each position's slice on that position's
-    device, row-major.  Positions with the same device and slice share
-    one tensor."""
+    """One tensor placed on a mesh (:func:`shard_packed`,
+    :class:`Shardings`): its spec (an axis name or None per dim; the
+    packed half drops trailing Nones), its global shape, the mesh, and
+    each position's slice on that position's device, row-major.
+    Positions with the same device and slice share one tensor, a *copy*:
+    whatever updates a copy updates it once for all of them."""
     spec: tuple
     shape: tuple[int, ...]
     mesh: Mesh
@@ -136,12 +370,146 @@ class Placed:
     def dtype(self) -> torch.dtype:
         return self.shards[0].dtype
 
+    def copies(self) -> list[tuple[torch.Tensor, tuple, list[int]]]:
+        """(tensor, its slice of the whole, the positions holding it) of
+        every distinct tensor, in the order of their first positions."""
+        out, seen = [], {}
+        for i, t in enumerate(self.shards):
+            if id(t) in seen:
+                out[seen[id(t)]][2].append(i)
+                continue
+            seen[id(t)] = len(out)
+            out.append((t, _index(self.mesh, self.spec, self.shape, i), [i]))
+        return out
+
+    def full(self, device=None) -> torch.Tensor:
+        """The whole tensor on ``device`` (the first position's device if
+        None), assembled there from one copy of each slice."""
+        device = torch.device(device) if device is not None \
+            else self.shards[0].device
+        out = torch.empty(self.shape, dtype=self.dtype, device=device)
+        done = set()
+        for t, idx, _ in self.copies():
+            key = tuple((sl.start, sl.stop) for sl in idx)
+            if key not in done:
+                done.add(key)
+                out[idx] = t.to(device)
+        return out
+
     def to_host(self) -> torch.Tensor:
         """The whole tensor on the CPU, from every position's slice."""
-        out = torch.empty(self.shape, dtype=self.dtype)
-        for i, t in enumerate(self.shards):
-            out[_index(self.mesh, self.spec, self.shape, i)] = t.cpu()
-        return out
+        return self.full("cpu")
+
+    def nbytes(self, position: int) -> int:
+        """The bytes ``position`` holds (shared or not)."""
+        t = self.shards[position]
+        return t.numel() * t.element_size()
+
+
+def _layout(mesh: Mesh, spec: tuple, shape: tuple[int, ...]):
+    """(each position's slice, each position's copy number): positions
+    with the same device and slice share a copy, numbered in the order of
+    their first positions."""
+    idxs, keys, copy_of = [], {}, []
+    for i, dev in enumerate(mesh.devices):
+        idx = _index(mesh, spec, shape, i)
+        key = (dev, tuple((sl.start, sl.stop) for sl in idx))
+        copy_of.append(keys.setdefault(key, len(keys)))
+        idxs.append(idx)
+    return idxs, copy_of
+
+
+def _place_leaf(t: torch.Tensor, spec: tuple, mesh: Mesh) -> Placed:
+    """``t`` placed by ``spec``: each copy sliced on ``t``'s own device and
+    only the slice moved; a copy of the whole tensor on its own device is
+    ``t`` itself, any other a new tensor (so ``t`` can be freed)."""
+    shape = tuple(t.shape)
+    idxs, copy_of = _layout(mesh, spec, shape)
+    made: dict[int, torch.Tensor] = {}
+    shards = []
+    for i, (idx, c) in enumerate(zip(idxs, copy_of)):
+        if c not in made:
+            dev = mesh.devices[i]
+            whole = all(sl.start == 0 and sl.stop == d
+                        for sl, d in zip(idx, shape))
+            made[c] = t.to(dev) if whole else t[idx].to(
+                dev, copy=True, memory_format=torch.contiguous_format)
+        shards.append(made[c])
+    return Placed(tuple(spec), shape, mesh, tuple(shards))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Shardings:
+    """Where every tensor of a tree goes: the mesh and ``{path: spec}``
+    (the reference's tree of ``NamedSharding`` objects)."""
+    mesh: Mesh
+    specs: dict
+
+    def place_leaf(self, path: str, t: torch.Tensor) -> Placed:
+        return _place_leaf(t, self.specs[path], self.mesh)
+
+    def place(self, tree: Any, *, donate: bool = False) -> Any:
+        """``tree`` with every tensor a :class:`Placed` (a tree placed
+        before is placed anew from its whole tensors).  ``donate``: the
+        reference's donated state; each dict or list entry of ``tree`` is
+        replaced by its placed value as it is made, so a source tensor
+        that nothing else holds is freed at once and the state never
+        exists twice."""
+        def walk(path, node):
+            if isinstance(node, (dict, list, tuple)):
+                keys = node.keys() if isinstance(node, dict) \
+                    else range(len(node))
+                out = {} if isinstance(node, dict) else [None] * len(node)
+                for k in keys:
+                    out[k] = walk(f"{path}/{k}" if path else str(k), node[k])
+                    if donate and not isinstance(node, tuple):
+                        node[k] = out[k]
+                return tuple(out) if isinstance(node, tuple) else out
+            if isinstance(node, Placed):
+                node = node.full()
+            if isinstance(node, torch.Tensor):
+                return self.place_leaf(path, node)
+            return node
+        return walk("", tree)
+
+
+def unshard(tree: Any, device=None) -> Any:
+    """``tree`` with every :class:`Placed` made whole on ``device`` (its
+    first position's device if None)."""
+    return map_with_path(lambda _, leaf: leaf.full(device)
+                         if isinstance(leaf, Placed) else leaf, tree)
+
+
+def position_bytes(tree: Any, specs: dict, mesh: Mesh) -> list[int]:
+    """The bytes each position holds of ``tree`` (tensors of any device,
+    meta included) placed by ``specs``, shared copies counted at every
+    position that holds them."""
+    out = [0] * mesh.size
+    for path, leaf in leaves_with_path(tree):
+        if not isinstance(leaf, (torch.Tensor, Placed)):
+            continue
+        item = torch.empty((), dtype=leaf.dtype).element_size()
+        for i in range(mesh.size):
+            n = 1
+            for sl in _index(mesh, specs[path], tuple(leaf.shape), i):
+                n *= sl.stop - sl.start
+            out[i] += n * item
+    return out
+
+
+def data_positions(mesh: Mesh) -> tuple[list[int], list[int]]:
+    """(each position's data slice, the first position of each data
+    slice): the data slices are the positions' coordinates over the
+    mesh's data axes (``DATA_AXES``), row-major."""
+    data_axes = [ax for ax in DATA_AXES if ax in mesh.shape]
+    index = []
+    for i in range(mesh.size):
+        c, k = mesh.coords(i), 0
+        for ax in data_axes:
+            k = k * mesh.shape[ax] + c[ax]
+        index.append(k)
+    n = math.prod(mesh.shape[ax] for ax in data_axes)
+    return index, [index.index(d) for d in range(n)]
 
 
 def _is_array(leaf) -> bool:
@@ -227,9 +595,9 @@ def _index(mesh: Mesh, spec: tuple, shape: tuple[int, ...],
     ``spec``."""
     coords = mesh.coords(position)
     idx = []
-    for dim, ax in zip(shape, spec):
+    for dim, ax in zip(shape, tuple(spec) + (None,) * len(shape)):
         if ax is None:
-            idx.append(slice(None))
+            idx.append(slice(0, dim))
             continue
         n, k = 1, 0
         for name in (ax if isinstance(ax, tuple) else (ax,)):
@@ -347,19 +715,12 @@ class ShardedForward:
             lambda _, leaf: leaf.shards[i] if isinstance(leaf, Placed)
             else leaf, placed) for i in range(mesh.size)]
         coords = [mesh.coords(i) for i in range(mesh.size)]
-        data_axes = [ax for ax in DATA_AXES if ax in mesh.shape]
+        # each position's data slice, and the first position of each data
+        # slice, which returns its rows
+        self._data_index, self._firsts = data_positions(mesh)
         #: every batch must be a multiple of this: the product of the
         #: mesh's data-parallel axis sizes
-        self.batch_multiple = math.prod(mesh.shape[ax] for ax in data_axes)
-        self._data_index = []
-        for c in coords:
-            k = 0
-            for ax in data_axes:
-                k = k * mesh.shape[ax] + c[ax]
-            self._data_index.append(k)
-        # the first position of each data slice, which returns its rows
-        self._firsts = [self._data_index.index(d)
-                        for d in range(self.batch_multiple)]
+        self.batch_multiple = len(self._firsts)
         # each position's peers along 'model', in model order
         self._peers = [[j for j in range(mesh.size)
                         if all(coords[j][ax] == c[ax] for ax in mesh.axes

@@ -1,4 +1,6 @@
-"""Device meshes for the sharded packed forward, driven from one process.
+"""Device meshes, driven from one process: the sharded packed forward's
+and the sharded train step's (``make_host_mesh``), and the dry run's
+production mesh (``make_production_mesh``).
 
 The reference is single-controller: one process holds a
 ``jax.sharding.Mesh`` and runs a ``shard_map`` over it.  The port keeps
@@ -53,6 +55,17 @@ class Mesh:
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, devices={[str(d) for d in self.devices]})"
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production mesh, 16 x 16 over (data, model), or 2 x
+    16 x 16 over (pod, data, model) with ``multi_pod``, as positions on
+    the meta device (``meta:0``, ``meta:1``, ...: one device each, as on
+    512 chips): the dry run reckons on it and nothing runs there."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh(shape, axes, [torch.device("meta", i)
+                              for i in range(math.prod(shape))])
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str],

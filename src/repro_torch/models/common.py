@@ -12,13 +12,22 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.tree import leaves_with_path, tree_index
+from repro_torch.tree import leaves_with_path, tree_index, tree_map
+
+
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` where only shapes are wanted
+    (the dry run): the ``init_*`` functions given it make float32 tensors
+    on the meta device, which hold no memory."""
+    device = torch.device("meta")
 
 
 def randn(gen: torch.Generator, shape, scale: float | None = None
           ) -> torch.Tensor:
     """Standard normal float32 from ``gen`` on its device, times
     ``scale``."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     x = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32)
     return x if scale is None else x * scale
@@ -27,6 +36,8 @@ def randn(gen: torch.Generator, shape, scale: float | None = None
 def uniform(gen: torch.Generator, shape, lo: float, hi: float
             ) -> torch.Tensor:
     """Uniform float32 in [lo, hi) from ``gen`` on its device."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     u = torch.rand(shape, generator=gen, device=gen.device,
                    dtype=torch.float32)
     return lo + (hi - lo) * u
@@ -224,6 +235,56 @@ def dense(params: dict, x: torch.Tensor, dtype=None) -> torch.Tensor:
 # layers stacked over depth, rematerialization
 # ---------------------------------------------------------------------------
 
+class Deferred:
+    """A leaf of a layer's params that stands for a tensor made when the
+    layer runs (a weight held in slices, say, and gathered by
+    :meth:`value`).  :func:`remat` makes the Deferred leaves of its
+    call's arguments inside the call, so the backward's recompute makes
+    them again."""
+    requires_grad = False
+
+    def value(self) -> torch.Tensor:
+        raise NotImplementedError
+
+
+def materialize(tree):
+    """``tree`` with every :class:`Deferred` leaf made; other leaves as
+    they are."""
+    return tree_map(lambda t: t.value() if isinstance(t, Deferred) else t,
+                    tree)
+
+
+def grad_views(src, dtype=None, groups: int | None = None) -> tuple:
+    """(views, grads) for differentiating with respect to the tensors of
+    ``src`` (a tree or one tensor): ``grads`` zeroed like ``src`` (its
+    float32 leaves cast to ``dtype`` first, where given), ``views`` each
+    tensor as an autograd leaf whose ``.grad`` is preset to its view of
+    ``grads``, so that backward adds into ``grads`` in place (non-float
+    leaves are plain detached tensors).  With ``groups``, ``views`` is a
+    list of the ``groups`` axis-0 entries' trees (layers stacked over
+    depth, read by :func:`layer_of`), each viewing its entry of
+    ``grads``."""
+    if dtype is not None:
+        src = tree_map(lambda p: p.to(dtype) if p.dtype == torch.float32
+                       else p, src)
+    grads = tree_map(torch.zeros_like, src)
+
+    def views(s, g):
+        return tree_map(_grad_leaf, s, g)
+    if groups is None:
+        return views(src, grads), grads
+    return [views(tree_index(src, i), tree_index(grads, i))
+            for i in range(groups)], grads
+
+
+def _grad_leaf(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    t = p.detach()
+    if t.is_floating_point():
+        t.requires_grad_(True)
+        t.grad = g
+    return t
+
+
 def layer_of(stacked, i: int):
     """Layer (or group) ``i`` of layers stacked over depth: a stacked tree
     is indexed along axis 0; a list already holds one tree per layer (the
@@ -235,18 +296,25 @@ def layer_of(stacked, i: int):
 def remat(fn, on: bool):
     """``fn`` under non-reentrant ``torch.utils.checkpoint`` where ``on``,
     autograd is recording and a tensor among the call's arguments (a
-    layer's params or its input) requires grad: its activations are
-    recomputed in the backward pass instead of kept, as ``jax.checkpoint``
-    with the ``nothing_saveable`` policy does.  Otherwise ``fn`` itself:
-    a forward that nothing differentiates (serving) keeps nothing
-    anyway.  The values do not change."""
+    layer's params, :class:`Deferred` ones included, or its input)
+    requires grad: its activations are recomputed in the backward pass
+    instead of kept, as ``jax.checkpoint`` with the ``nothing_saveable``
+    policy does.  Otherwise ``fn`` itself: a forward that nothing
+    differentiates (serving) keeps nothing anyway.  The values do not
+    change.  With ``on``, :class:`Deferred` leaves of the arguments are
+    made inside the call (:func:`materialize`), again in the recompute."""
     if not on:
         return fn
 
+    def made(*args):
+        return fn(*materialize(args))
+
     def run(*args):
+        leaves = [t for _, t in leaves_with_path(args)]
+        body = made if any(isinstance(t, Deferred) for t in leaves) else fn
         if torch.is_grad_enabled() and any(
-                isinstance(t, torch.Tensor) and t.requires_grad
-                for _, t in leaves_with_path(args)):
-            return checkpoint(fn, *args, use_reentrant=False)
-        return fn(*args)
+                isinstance(t, (torch.Tensor, Deferred)) and t.requires_grad
+                for t in leaves):
+            return checkpoint(body, *args, use_reentrant=False)
+        return body(*args)
     return run

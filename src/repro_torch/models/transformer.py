@@ -137,7 +137,9 @@ def stack_forward(stack: list, cfg, x: torch.Tensor,
     only the group inputs are kept (the reference's ``jax.checkpoint``
     with ``nothing_saveable`` around its scan body).  Without autograd
     nothing is kept either way, and the values never change.  A segment
-    may also be a list of its groups' trees (``common.layer_of``)."""
+    may also be a list of its groups' trees (``common.layer_of``), whose
+    leaves may be ``common.Deferred`` (made by ``common.remat`` as the
+    group runs, so only with ``remat``)."""
 
     def group_body(h, group, pattern):
         for pos, kind in enumerate(pattern):

@@ -58,7 +58,8 @@ def slices(*ts: torch.Tensor):
         yield tuple(f[i:i + SLICE] for f in flats)
 
 
-def _sum_sq(t: torch.Tensor) -> torch.Tensor:
+def sum_sq(t: torch.Tensor) -> torch.Tensor:
+    """The float32 sum of squares of ``t``, a ``SLICE`` at a time."""
     total = None
     for (s,) in slices(t):
         part = torch.sum(torch.square(s.to(torch.float32)))
@@ -72,9 +73,38 @@ def global_norm(tree) -> torch.Tensor:
     (``tree.sorted_leaves``)."""
     total = None
     for leaf in sorted_leaves(tree):
-        s = _sum_sq(leaf)
+        s = sum_sq(leaf)
         total = s if total is None else total + s
     return torch.sqrt(total)
+
+
+def step_scalars(cfg: AdamWConfig, step: torch.Tensor, gn: torch.Tensor,
+                 lr_scale=1.0) -> tuple:
+    """(clip scale, 1 / (1 - b1^t), 1 / (1 - b2^t), lr) of the step whose
+    counter already reads ``step`` and whose gradients' norm is ``gn``."""
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-12),
+                        max=1.0)
+    t = step.to(torch.float32)
+    return (scale, 1.0 / (1 - cfg.b1 ** t), 1.0 / (1 - cfg.b2 ** t),
+            cfg.lr * lr_scale)
+
+
+def update_leaf(cfg: AdamWConfig, p_full, g_full, m_full, v_full,
+                scalars: tuple) -> None:
+    """One leaf's AdamW update in place, a ``SLICE`` at a time, with the
+    step's :func:`step_scalars`."""
+    scale, mu_hat_s, nu_hat_s, lr = scalars
+    b1, b2 = cfg.b1, cfg.b2
+    for p, g, m, v in slices(p_full, g_full, m_full, v_full):
+        g = g.to(torch.float32) * scale
+        m.mul_(b1).add_((1 - b1) * g)
+        v.mul_(b2).add_((1 - b2) * g * g)
+        u = (m * mu_hat_s) / (torch.sqrt(v * nu_hat_s) + cfg.eps)
+        p32 = p.to(torch.float32)
+        newp = p32 - lr * (u + cfg.weight_decay * p32)
+        if cfg.clip_latent:
+            newp = B.clip_latent(newp)
+        p.copy_(newp)
 
 
 def adamw_update(cfg: AdamWConfig, params, grads, state, lr_scale=1.0):
@@ -84,24 +114,9 @@ def adamw_update(cfg: AdamWConfig, params, grads, state, lr_scale=1.0):
     step = state["step"]
     step.add_(1)
     gn = global_norm(grads)
-    scale = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-12),
-                        max=1.0)
-    b1, b2 = cfg.b1, cfg.b2
-    t = step.to(torch.float32)
-    mu_hat_s = 1.0 / (1 - b1 ** t)
-    nu_hat_s = 1.0 / (1 - b2 ** t)
-    lr = cfg.lr * lr_scale
+    scalars = step_scalars(cfg, step, gn, lr_scale)
     leaves = zip(*(list(sorted_leaves(tree))       # key order may differ
                    for tree in (params, grads, state["mu"], state["nu"])))
     for p_full, g_full, m_full, v_full in leaves:
-        for p, g, m, v in slices(p_full, g_full, m_full, v_full):
-            g = g.to(torch.float32) * scale
-            m.mul_(b1).add_((1 - b1) * g)
-            v.mul_(b2).add_((1 - b2) * g * g)
-            u = (m * mu_hat_s) / (torch.sqrt(v * nu_hat_s) + cfg.eps)
-            p32 = p.to(torch.float32)
-            newp = p32 - lr * (u + cfg.weight_decay * p32)
-            if cfg.clip_latent:
-                newp = B.clip_latent(newp)
-            p.copy_(newp)
+        update_leaf(cfg, p_full, g_full, m_full, v_full, scalars)
     return params, {"mu": state["mu"], "nu": state["nu"], "step": step}, gn

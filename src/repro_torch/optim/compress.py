@@ -22,6 +22,25 @@ def signsgd_ef_init(params):
                     params)
 
 
+def add_error(g: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """e += g in place; returns sum(|g + e|), float32, a ``SLICE`` at a
+    time."""
+    total = None
+    for gs, es in slices(g, e):
+        es.add_(gs.to(torch.float32))                 # g + e
+        part = torch.sum(torch.abs(es))
+        total = part if total is None else total + part
+    return total
+
+
+def apply_scale(g: torch.Tensor, e: torch.Tensor, scale) -> None:
+    """g = scale * sign(e), e -= that (before its cast to g's dtype)."""
+    for gs, es in slices(g, e):
+        comp = torch.sign(es) * scale
+        gs.copy_(comp)
+        es.sub_(comp)
+
+
 def signsgd_ef_compress(grads, error):
     """Returns (compressed grads, new error), the trees passed in.
 
@@ -30,14 +49,5 @@ def signsgd_ef_compress(grads, error):
     to the gradient's dtype.
     """
     for g, e in zip(sorted_leaves(grads), sorted_leaves(error)):
-        total = None
-        for gs, es in slices(g, e):
-            es.add_(gs.to(torch.float32))                 # g + e
-            part = torch.sum(torch.abs(es))
-            total = part if total is None else total + part
-        scale = total / e.numel()
-        for gs, es in slices(g, e):
-            comp = torch.sign(es) * scale
-            gs.copy_(comp)
-            es.sub_(comp)
+        apply_scale(g, e, add_error(g, e) / e.numel())
     return grads, error

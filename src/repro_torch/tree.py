@@ -44,6 +44,21 @@ def sorted_leaves(tree) -> Iterator[Any]:
         yield tree
 
 
+def sorted_paths(tree, prefix: str = "") -> Iterator[str]:
+    """The paths of :func:`sorted_leaves`' leaves, in its order."""
+    if tree is None:
+        return
+    if isinstance(tree, dict):
+        items = ((k, tree[k]) for k in sorted(tree))
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        yield prefix
+        return
+    for k, v in items:
+        yield from sorted_paths(v, f"{prefix}/{k}" if prefix else str(k))
+
+
 def map_with_path(fn: Callable[[str, Any], Any], tree, prefix: str = ""):
     """The tree with every leaf replaced by ``fn(path, leaf)``; dicts,
     lists, tuples and ``None`` keep their places."""

@@ -66,6 +66,10 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.data", "repro_torch.data.synthetic",
             "repro_torch.train.trainer",
             "repro_torch.launch.train"} <= set(names)
+    # and the sharded-training and dry-run slice's
+    assert {"repro_torch.distributed.fsdp", "repro_torch.configs.shapes",
+            "repro_torch.launch.specs",
+            "repro_torch.launch.dryrun"} <= set(names)
     assert leaked == []
 
 

@@ -286,7 +286,8 @@ def _cli(*args):
 
 def test_cli_trains_and_resumes(tmp_path):
     """A fresh run checkpointing every 3 steps, then a rerun that restores
-    its step-5 checkpoint and runs steps 6 and 7; a mesh raises."""
+    its step-5 checkpoint and runs steps 6 and 7; a (2, 1) mesh trains
+    (its parity: ``test_torch_train_sharded.py``)."""
     ck = str(tmp_path / "ck")
     first = _cli("--steps", "6", "--ckpt-dir", ck, "--ckpt-every", "3")
     assert first.returncode == 0, first.stderr
@@ -308,6 +309,5 @@ def test_cli_trains_and_resumes(tmp_path):
                                                      reduced=True),
         TR.TrainConfig(), device="cpu"))
     assert meta["step"] == 5 and int(state["opt"]["step"]) == 6
-    with pytest.raises(NotImplementedError, match="sharding"):
-        train_cli.main(["--arch", "starcoder2-3b", "--reduced", "--data",
-                        "2", "--device", "cpu"])
+    train_cli.main(["--arch", "starcoder2-3b", "--reduced", "--data", "2",
+                    "--steps", "1", "--device", "cpu"])
