@@ -118,7 +118,26 @@ Phases, each printing its lines:
    ``fsdp.step_traffic``, ms a step, tokens/s and the peak beside the
    reckoning; the (2, 2)-trained binary tree made whole, packed and
    served (K5 = K4 = 181, equal to the plain route); gemma2-9b's
-   per-position bytes on (2, 2), (4, 1) and 16 x 16 from the dry run.
+   per-position bytes on (2, 2), (4, 1) and 16 x 16 from the dry run;
+11. static analysis and launch probes (``repro_torch.analysis``,
+   ``telemetry/probes.py``): ``BCNNSpec()`` and ``BMLPSpec()`` (made
+   again from seed 0) at batches 1, 8, 32 and 256 in both modes and
+   gemma2-9b at full width (made again from seed 0) at (1, 16) and
+   (8, 16), each traced on fake tensors (``analysis.graph``), then run
+   for real with the launch counts set to 0 just before it and read just
+   after, inside the ops' launch recorder: the real launches' order,
+   counts, grids and routes and the packedness report of the real run
+   equal the fake trace's, with no escape; every distinct launch's
+   shared-memory estimate (``analysis.smem``) equal to its launcher's
+   query entry, with the instance's registers and static shared memory
+   from the ptxas report (equal to the runtime's attributes) inside the
+   budget; a seeded over-budget K6 and K1 launch refused by its launcher
+   (``SmemBudgetError``) before anything launches; phase 7's sharded
+   forwards at batch 8 through the collective rules on every mesh; both
+   ``--check`` CLIs; the host cost the ``ops`` dispatcher adds to a
+   launch beside the wrapper called directly (µs, median; at most
+   HOST_ADDED_MAX_US), and what the op adds where a trace goes through
+   it.
 
 Every kernel is held to its plain version exactly, but for the attention
 kernel (K8), whose float softmax is held within rtol = atol = 2e-5 (the
@@ -3392,6 +3411,412 @@ def phase10_sharded(drv, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 11. static analysis and launch probes on the card
+# ---------------------------------------------------------------------------
+
+ANALYSIS_BATCHES = (1, 8, 32, 256)
+HOST_ROUNDS, HOST_CALLS = 61, 50       # the host cost's median and chunk
+HOST_ADDED_MAX_US = 5.0    # the most the dispatcher may add to a launch
+
+
+def analysis_networks(dev) -> dict:
+    """``BCNNSpec()`` and ``BMLPSpec()`` from seed 0 as phase 4 makes them
+    (random BN, packed on the card), and their inputs at
+    ANALYSIS_BATCHES."""
+    import torch
+    from repro_torch.models import cnn
+    gen = torch.Generator().manual_seed(0)
+    bspec, mspec = cnn.BCNNSpec(), cnn.BMLPSpec()
+    bparams = cnn.init_bcnn(gen, bspec)
+    randomize_bn(bparams["conv_bns"] + bparams["dense_bns"], gen)
+    mparams = cnn.init_bmlp(gen, mspec)
+    randomize_bn(mparams["bns"], gen)
+    nets = {"bcnn": cnn.pack_bcnn(bparams, bspec, device=dev),
+            "bmlp": cnn.pack_bmlp(mparams, mspec, device=dev)}
+    inputs = {kind: {b: torch.randint(
+        0, 256, (b, *cnn.packed_input_shape(p)), generator=gen,
+        dtype=torch.uint8).to(dev) for b in ANALYSIS_BATCHES}
+        for kind, p in nets.items()}
+    return nets, inputs
+
+
+def traced_pair(drv, what, fn, args, policy):
+    """``fn(*args)`` traced on fake twins, then run for real on the card
+    with the launch counts set to 0 just before and read just after,
+    inside a launch recorder: the real launches' order, counts, grids and
+    routes, and the packedness report of the real run, must equal the
+    fake trace's.  Returns (fake trace, packedness report)."""
+    import collections
+    import torch
+    from repro_torch.analysis import graph, packedness
+    from repro_torch.kernels import library as lib
+    from repro_torch.kernels import ops
+    fake = graph.trace(fn, *args)
+    ops.reset_launch_counts()
+    with lib.record_launches() as order:
+        real = graph.trace(fn, *args, fake=False)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    for k, v in counts.items():
+        drv.totals[k] += v
+    want = [ln.kernel for ln in fake.launches()]
+    if order != want or counts != dict(collections.Counter(want)):
+        raise AssertionError(f"{what}: real launches {order} ({counts}), "
+                             f"the fake trace's {want}")
+    if real.launches() != fake.launches():
+        raise AssertionError(f"{what}: real grids and routes "
+                             f"{real.launches()}, fake {fake.launches()}")
+    rep = packedness.analyze_trace(fake, policy)
+    if packedness.analyze_trace(real, policy).to_json() != rep.to_json() \
+            or not rep.ok:
+        raise AssertionError(f"{what}: packedness of the real run "
+                             f"{packedness.analyze_trace(real, policy)}, "
+                             f"of the fake trace {rep}")
+    return fake, rep
+
+
+def launch_summary(tr) -> str:
+    """``kernel(route) grid`` of each launch, runs of one collapsed."""
+    out, prev, n = [], None, 0
+    for ln in tr.launches() + [None]:
+        key = None if ln is None else f"{ln.kernel}({ln.route}){list(ln.grid)}"
+        if key == prev:
+            n += 1
+            continue
+        if prev is not None:
+            out.append(prev + (f" x{n}" if n > 1 else ""))
+        prev, n = key, 1
+    return ", ".join(out)
+
+
+def smem_rows(traces) -> dict:
+    """Every distinct launch of ``traces`` held to its launcher's query
+    (grid, threads, dynamic shared memory) and given its instance's
+    registers and static shared memory from the ptxas report; by kernel,
+    the instances seen."""
+    from repro_torch.analysis import smem
+    seen, rows = set(), {}
+    for tr in traces:
+        for op in tr.ops:
+            est = op.estimate
+            if est is None or (est.kernel, est.query) in seen:
+                continue
+            seen.add((est.kernel, est.query))
+            full = smem.check_against_card(est)
+            if not full.fits():
+                raise AssertionError(f"over a block's budget on the card:\n"
+                                     f"{full.breakdown()}")
+            key = (full.route, full.threads, full.dynamic,
+                   full.static_smem, full.registers)
+            rows.setdefault(full.kernel, {})[key] = \
+                rows.get(full.kernel, {}).get(key, 0) + 1
+    return rows
+
+
+def host_cases(nets, lm, dev) -> dict:
+    """One launch of each kernel at a batch-1 shape of its path: the op's
+    arguments, and the wrapper's direct call on the same tensors with its
+    keywords bound beforehand."""
+    import functools
+    import torch
+    from repro_torch.core import binarize as B
+    from repro_torch.kernels import binary_attention as batt
+    from repro_torch.kernels import binary_conv as bconv
+    from repro_torch.kernels import binary_matmul as bmm
+    from repro_torch.kernels import bitpack as bp
+    from repro_torch.kernels import fused_epilogue as fe
+    from repro_torch.kernels import library as lib
+    from repro_torch.kernels import ops
+    P = functools.partial
+    gen = torch.Generator().manual_seed(11)
+    bmlp, bcnn = nets["bmlp"], nets["bcnn"]
+    l0, l1, l2 = bmlp["layers"][:3]
+    f0, f1, f2 = bmlp["folded"][:3]
+    planes = torch.where(torch.rand((8, 784), generator=gen) < 0.5, 1.0,
+                         -1.0).to(dev)
+    a0 = ops.bitpack(planes)
+    h = B.pack_bits(torch.rand((1, 4096), generator=gen) * 2 - 1).to(dev)
+    z = torch.randint(-900, 900, (1, 4096), generator=gen,
+                      dtype=torch.int32).to(dev)
+    ws = [l1["w_packed"], l2["w_packed"]]
+    taus, flips = [f1["tau"], f2["tau"]], [f1["flip"], f2["flip"]]
+    cases = {
+        "bitpack": ((planes,), P(bp.bitpack, planes)),
+        "xnor_gemm": ((a0, l0["w_packed"], 784), P(
+            bmm.binary_matmul_packed, a0, l0["w_packed"], k_true=784)),
+        "bn_sign_pack": ((z, f0["tau"], f0["flip"]),
+                         P(fe.bn_sign_pack, z, f0["tau"], f0["flip"])),
+        "xnor_gemm_bn_sign": (
+            (h, l1["w_packed"], f1["tau"], f1["flip"], 4096),
+            P(bmm.binary_matmul_bn_sign_packed, h, l1["w_packed"],
+              f1["tau"], f1["flip"], k_true=4096)),
+        "dense_stack": ((h, [*ws, *taus, *flips], [4096, 4096]),
+                        P(bmm.binary_dense_stack_packed, h, ws, taus, flips,
+                          k_trues=[4096, 4096])),
+    }
+    p1, fold1 = bcnn["convs"][1], bcnn["folded_conv"][1]
+    x1 = B.pack_bits(torch.rand((1, 32, 32, 128), generator=gen) * 2 - 1
+                     ).to(dev)
+    g1 = lib.conv_geom(p1)
+    cases["conv_bn_sign"] = (
+        (x1, p1["w_packed"], p1["correction"], fold1["tau"], fold1["flip"],
+         g1), P(bconv.binary_conv2d_bn_sign_packed, x1, p1["w_packed"],
+                p1["correction"], fold1["tau"], fold1["flip"],
+                **lib.geom_kwargs(g1)))
+    cases["binary_conv"] = (
+        (x1, p1["w_packed"], p1["correction"], g1),
+        P(bconv.binary_conv2d_packed, x1, p1["w_packed"], p1["correction"],
+          **lib.geom_kwargs(g1)))
+    p0, fold0 = bcnn["convs"][0], bcnn["folded_conv"][0]
+    x0 = B.pack_bitplanes_uint8(torch.randint(
+        0, 256, (1, 32, 32, 3), generator=gen, dtype=torch.uint8).to(dev), 8)
+    g0 = [*lib.conv_geom(p0), 8]
+    cases["bitplane_conv_bn_sign"] = (
+        (x0, p0["w_packed"], p0["rowsum"], fold0["tau"], fold0["flip"], g0),
+        P(bconv.bitplane_conv2d_bn_sign_packed, x0, p0["w_packed"],
+          p0["rowsum"], fold0["tau"], fold0["flip"], nbits=8,
+          **lib.geom_kwargs(g0)))
+    cases["bitplane_conv"] = (
+        (x0, p0["w_packed"], p0["rowsum"], g0),
+        P(bconv.bitplane_conv2d_packed, x0, p0["w_packed"], p0["rowsum"],
+          nbits=8, **lib.geom_kwargs(g0)))
+    meta = lm["meta"]
+    hq, hkv, hd = meta["num_heads"], meta["num_kv_heads"], meta["head_dim"]
+    q = B.pack_bits(torch.rand((1, 16, hq, hd), generator=gen) * 2 - 1
+                    ).to(dev)
+    k = B.pack_bits(torch.rand((1, 16, hkv, hd), generator=gen) * 2 - 1
+                    ).to(dev)
+    v = torch.randn((1, 16, hkv, hd), generator=gen).to(dev)
+    window, cap = meta["window_size"], meta["attn_softcap"]
+    cases["binary_attention"] = (
+        (q, k, v, hd, True, window, cap, 0),
+        P(batt.binary_attention_packed, q, k, v, d_true=hd, causal=True,
+          window=window, attn_softcap=cap, q_offset=0))
+    return cases
+
+
+def host_cost(cases) -> dict:
+    """Per kernel, µs a call on the host, each the median over HOST_ROUNDS
+    chunks of HOST_CALLS calls with the garbage collector off (as
+    ``timeit``), the card synchronized between chunks, the variants in
+    turns within a round: the ``ops`` dispatcher's launch
+    (``ops._launch``, the kernel's CUDA body outside a trace), the wrapper
+    called directly on the same inputs, and the kernel's op (the path a
+    trace takes); what the dispatcher and the op add is the median of
+    each round's difference to the direct call.  The dispatcher's output
+    equals the direct call's bit for bit (every kernel, K8 too, computes
+    in a fixed order)."""
+    import functools
+    import gc
+    import statistics
+    import torch
+    from repro_torch.kernels import library as lib
+    from repro_torch.kernels import ops
+    out = {}
+    for name, (args, direct) in cases.items():
+        runs = {"dispatcher": functools.partial(ops._launch, name, *args),
+                "direct": direct,
+                "op": functools.partial(lib.OPS[name], *args)}
+        check_equal(f"host cost {name}: the op against the direct call",
+                    runs["dispatcher"](), direct())
+        per = {k: [] for k in runs}
+        gc.disable()
+        try:
+            for r in range(HOST_ROUNDS):
+                order = list(runs) if r % 2 else list(runs)[::-1]
+                for which in order:
+                    fn = runs[which]
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(HOST_CALLS):
+                        fn()
+                    per[which].append((time.perf_counter() - t0) * 1e6 /
+                                      HOST_CALLS)
+                    torch.cuda.synchronize()
+        finally:
+            gc.enable()
+        med = {k: statistics.median(v) for k, v in per.items()}
+        out[name] = {**{f"{k}_us": v for k, v in med.items()},
+                     "added_us": statistics.median(
+                         d - b for d, b in zip(per["dispatcher"],
+                                               per["direct"])),
+                     "op_added_us": statistics.median(
+                         o - b for o, b in zip(per["op"], per["direct"]))}
+    return out
+
+
+def check_collectives(nets, inputs, dev) -> list:
+    """Phase 7's sharded forwards at batch 8 on every mesh of
+    SHARD_MESHES in both modes through the collective rules
+    (``analysis.collectives.check_mesh``), the gathers also held to the
+    plan's (``verify_sharded.expected_gathers``)."""
+    from repro_torch.analysis import collectives as col
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed import verify_sharded as vs
+    from repro_torch.launch.mesh import make_host_mesh
+    seen = []
+    for kind, packed in nets.items():
+        for shape in SHARD_MESHES:
+            mesh = make_host_mesh(*shape)
+            for mode in MODES:
+                fwd = sh.make_sharded_forward(packed, mesh, dense_stack=mode)
+                _, got = col.count_collectives(
+                    fwd.forward_int, inputs[kind][8], positions=mesh.size)
+                rep = col.check_mesh(got, shape)
+                n, nbytes = vs.expected_gathers(packed, fwd.shard_plan,
+                                                mesh, 8)
+                if not rep.ok or got.kinds.get("all-gather", 0) != n or \
+                        got.bytes_by_kind.get("all-gather", 0) * mesh.size \
+                        != nbytes:
+                    raise AssertionError(f"collectives {kind} {shape} "
+                                         f"{mode}: {rep} against {n}, "
+                                         f"{nbytes}")
+                seen.append((kind, shape, mode, rep.kinds, rep.total_bytes))
+    return seen
+
+
+def run_cli(module) -> str:
+    """``python -m <module> --check`` from the root; raises unless it
+    exits 0; returns its last line."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-m", module, "--check"],
+                          capture_output=True, text=True, env=env, cwd=ROOT,
+                          timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m {module} --check exited "
+                             f"{proc.returncode}:\n{proc.stdout}\n"
+                             f"{proc.stderr}")
+    return proc.stdout.strip().splitlines()[-1]
+
+
+def phase11_analysis(drv, dev) -> dict:
+    """Phase 11: the fake trace of every forward against its real launches
+    (order, counts, grids, routes, packedness), every launch's
+    shared-memory estimate against its launcher's query with registers and
+    static shared memory from ptxas, a seeded over-budget launch refused
+    before anything launches, the collective rules on phase 7's meshes,
+    both ``--check`` CLIs, and the host cost the dispatcher adds to a
+    launch (at most HOST_ADDED_MAX_US)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.analysis import graph, smem
+    from repro_torch.core import binarize as B
+    from repro_torch.kernels import binary_conv as bconv
+    from repro_torch.kernels import ops
+    from repro_torch.models import cnn
+    t0 = time.perf_counter()
+    nets, inputs = analysis_networks(dev)
+    traces, summary = [], {}
+    for kind, packed in nets.items():
+        for mode in MODES:
+            for b in ANALYSIS_BATCHES:
+                what = f"{kind} {mode} B={b}"
+                tr, rep = traced_pair(
+                    drv, what, lambda p, x: cnn.make_packed_forward(
+                        p, dense_stack=mode)(x), (packed, inputs[kind][b]),
+                    "strict")
+                traces.append(tr)
+                big = max(graph.intermediates(tr),
+                          key=lambda vi: vi[0].nbytes)[0]
+                summary[what] = {
+                    "launches": len(tr.launches()),
+                    "max_intermediate": [big.nbytes, list(big.shape)],
+                    "max_live_unpacked": rep.max_live_unpacked_bytes}
+                log(f"analysis {what}: {launch_summary(tr)}; largest "
+                    f"intermediate {big.nbytes} B {list(big.shape)}; "
+                    f"unpacked live at most {rep.max_live_unpacked_bytes} B "
+                    f"{list(rep.max_unpacked_shape)}; no escape")
+    spec, lm = lm_model(dev, torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    for b, s in LM_SERVE:
+        what = f"lm {spec.name} {(b, s)}"
+        tokens = torch.randint(0, spec.vocab_size, (b, s), generator=gen,
+                               dtype=torch.int32).to(dev)
+        tr, rep = traced_pair(drv, what, lambda p, x: cnn.make_packed_forward(
+            p)(x), (lm, tokens), "float-residual")
+        traces.append(tr)
+        big = max(graph.intermediates(tr), key=lambda vi: vi[0].nbytes)[0]
+        summary[what] = {"launches": len(tr.launches()),
+                         "max_intermediate": [big.nbytes, list(big.shape)],
+                         "max_live_unpacked": rep.max_live_unpacked_bytes}
+        counts = {}
+        for ln in tr.launches():
+            counts[ln.kernel] = counts.get(ln.kernel, 0) + 1
+        log(f"analysis {what}: {len(tr.launches())} launches {counts}, "
+            f"real order equal; largest intermediate {big.nbytes} B "
+            f"{list(big.shape)}; unpacked live at most "
+            f"{rep.max_live_unpacked_bytes} B; no escape")
+    rows = smem_rows(traces)
+    for kernel, seen in sorted(rows.items()):
+        log(f"smem {kernel}: " + "; ".join(
+            f"{route} {threads} threads, {dyn} B dynamic + {static} B "
+            f"static of {smem.SMEM_BUDGET}, {regs} registers "
+            f"({regs * threads} of {smem.REGS_PER_SM}) x{n}"
+            for (route, threads, dyn, static, regs), n in sorted(
+                seen.items())))
+    log(f"smem: {sum(len(v) for v in rows.values())} distinct launches, "
+        f"each estimate equal to its launcher's query; registers and "
+        f"static shared memory from ptxas, equal to the runtime's")
+
+    # a seeded over-budget launch of K6 and of K1: refused by its
+    # launcher, nothing counted
+    g = torch.Generator().manual_seed(577)
+    wide = [{"w_packed": B.pack_bits(torch.rand((577 * 32, 32),
+                                                generator=g) - 0.5).to(dev),
+             "k_true": 32, "tau": torch.zeros(577 * 32, device=dev),
+             "flip": torch.ones(577 * 32, device=dev)}]
+    plan = {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+            for k, v in bconv.make_bitplane_conv_plan(
+                torch.ones(8, 3, 3, 1024), input_hw=(3, 2048),
+                padding="VALID", nbits=8).items()}
+    ops.reset_launch_counts()
+    refused = []
+    for what, run in (
+            ("K6, 577-word rows", lambda: ops.binary_dense_stack_packed(
+                wide, B.pack_bits(torch.rand((4, 32), generator=g) - 0.5
+                                  ).to(dev), resident=True)),
+            ("K1, a (3, 2048) band of 1024 channels",
+             lambda: ops.bitplane_conv2d_packed(plan, torch.zeros(
+                 (1, 3, 2048, 1024), dtype=torch.uint8, device=dev)))):
+        try:
+            run()
+        except smem.SmemBudgetError as e:
+            refused.append(f"{what}: {e.estimate.total} B")
+        else:
+            raise AssertionError(f"seeded over-budget launch ran: {what}")
+    torch.cuda.synchronize()
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"a refused launch was counted: "
+                             f"{ops.launch_counts()}")
+    log(f"over budget: refused by the launchers before launching, no "
+        f"launch counted: {refused}")
+
+    sharded = check_collectives(nets, inputs, dev)
+    log(f"collectives: {len(sharded)} sharded forwards pass check_mesh "
+        f"(data meshes silent, model meshes all-gathers only), gathers "
+        f"and bytes as planned: " + "; ".join(
+            f"{k} {s} {m} {kinds} {b:.0f} B/device"
+            for k, s, m, kinds, b in sharded if m == "auto"))
+    for module in ("repro_torch.analysis", "repro_torch.telemetry.probes"):
+        log(f"cli python -m {module} --check: {run_cli(module)}")
+    cost = host_cost(host_cases(nets, lm, dev))
+    log("host cost a launch, µs (medians, GC off): the ops dispatcher "
+        "against the wrapper called directly, added; the op (a trace's "
+        "path) added: " + "; ".join(
+            f"{k} {v['dispatcher_us']:.4g} vs {v['direct_us']:.4g} "
+            f"(+{v['added_us']:.3g}); op +{v['op_added_us']:.3g}"
+            for k, v in cost.items()))
+    over = {k: v["added_us"] for k, v in cost.items()
+            if v["added_us"] > HOST_ADDED_MAX_US}
+    if over:
+        raise AssertionError(f"the ops dispatcher adds more than "
+                             f"{HOST_ADDED_MAX_US} µs a launch: {over}")
+    del lm
+    log(f"analysis: {time.perf_counter() - t0:.1f} s")
+    return {"cells": summary, "host_cost_us": cost}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3650,6 +4075,12 @@ def main() -> int:
     phase10_sharded(drv, dev)
     log(f"train sharded: {time.perf_counter() - t0:.1f} s; launches in "
         f"all, phases 4-10 {launches}")
+
+    # 11. static analysis and launch probes: fake traces against the real
+    # launches, shared memory against the launchers, the host cost
+    free_card()
+    phase11_analysis(drv, dev)
+    log(f"analysis: launches in all, phases 4-11 {launches}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     kernels = []

@@ -513,3 +513,27 @@ extern "C" int binary_attention(const void* q, const void* k, const void* v,
   if (Dv <= 128) return launch<16, true, kWarps>(a, B, st);
   return launch<kMaxNV, true, kWarps>(a, B, st);
 }
+
+namespace {
+
+template <int NV, bool kStaged, int kRowWarps>
+int query(int B, int Sq, int Hq, int Dv, int* out, const char** name) {
+  constexpr int kRows = 16 * kRowWarps;
+  const int chunks = (Dv + 8 * NV - 1) / (8 * NV);
+  return launch_query(attention_kernel<NV, kStaged, kRowWarps>,
+                      dim3(Hq, (Sq + kRows - 1) / kRows, B * chunks),
+                      dim3(kThreads), attn_smem_bytes<NV, kStaged, kRows>(),
+                      out, name);
+}
+
+}  // namespace
+
+// What binary_attention() launches for these sizes (common.cuh:
+// launch_query), by the same branches.
+extern "C" int binary_attention_query(int B, int Sq, int Hq, int Dw, int Dv,
+                                      int* out, const char** name) {
+  if (Dw > kBK) return query<kMaxNV, false, kWarps>(B, Sq, Hq, Dv, out, name);
+  if (Sq <= 16) return query<kMaxNV, true, 1>(B, Sq, Hq, Dv, out, name);
+  if (Dv <= 128) return query<16, true, kWarps>(B, Sq, Hq, Dv, out, name);
+  return query<kMaxNV, true, kWarps>(B, Sq, Hq, Dv, out, name);
+}

@@ -103,3 +103,17 @@ extern "C" int bitpack(const void* x, void* out, int M, int K, int aligned,
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// What bitpack() launches for these sizes (common.cuh: launch_query).
+extern "C" int bitpack_query(int M, int K, int aligned, int* out,
+                             const char** name) {
+  const long long words =
+      static_cast<long long>(M) * ((K + kWarp - 1) / kWarp);
+  if (aligned)
+    return launch_query(
+        bitpack_aligned_kernel,
+        dim3(blocks_for_warps((words + kWordsPerWarp - 1) / kWordsPerWarp)),
+        dim3(kBlockThreads), 0, out, name);
+  return launch_query(bitpack_kernel, dim3(blocks_for_warps(words)),
+                      dim3(kBlockThreads), 0, out, name);
+}

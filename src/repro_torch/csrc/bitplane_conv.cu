@@ -359,10 +359,34 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The geometry search and the launch of either instance.  The int32
-// instance takes the largest chunk of 64, 32, 16 or 8 channels, then the
-// largest band, that fits the limit; the fused one chunks of 64 or 32
-// only, so that no 32-channel word spans two chunks.
+// The geometry search.  The int32 instance takes the largest chunk of 64,
+// 32, 16 or 8 channels, then the largest band, that fits the card's
+// per-block limit; the fused one chunks of 64 or 32 only, so that no
+// 32-channel word spans two chunks.  Returns 0, kTooLarge where nothing
+// fits, or a CUDA error.
+int search_geometry(int B, int H, int W, int Cw, int C_in, int C_out, int KH,
+                    int KW, int stride, int pad_top, int pad_left, int OH,
+                    int OW, int nbits, bool fused, Geometry* g) {
+  int dev = 0, limit = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(
+        &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int min_chunk = fused ? 32 : 8;
+  bool fits = false;
+  const int r_full = (kMinBandPixels + OW - 1) / OW;
+  for (int R = r_full < OH ? r_full : OH; R >= 1 && !fits;
+       R = R > 1 ? R / 2 : 0)
+    for (int chunk = kChunkN; chunk >= min_chunk && !fits; chunk /= 2) {
+      *g = make_geometry(B, H, W, Cw, C_in, C_out, KH, KW, stride, pad_top,
+                         pad_left, OH, OW, nbits, R, chunk, fused);
+      fits = g->smem() <= static_cast<size_t>(limit);
+    }
+  return fits ? 0 : kTooLarge;
+}
+
+// The launch of either instance in the geometry search_geometry finds.
 template <bool kFused>
 int launch(const void* planes, const void* w, const void* tau,
            const void* flip, void* out, int B, int H, int W, int Cw,
@@ -372,24 +396,12 @@ int launch(const void* planes, const void* w, const void* tau,
     return static_cast<int>(cudaGetLastError());
   if (nbits < 1 || nbits > 8 || C_in < 1 || C_in > 32 * Cw)
     return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, limit = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(
-        &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int min_chunk = kFused ? 32 : 8;
   Geometry g{};
-  bool fits = false;
-  const int r_full = (kMinBandPixels + OW - 1) / OW;
-  for (int R = r_full < OH ? r_full : OH; R >= 1 && !fits;
-       R = R > 1 ? R / 2 : 0)
-    for (int chunk = kChunkN; chunk >= min_chunk && !fits; chunk /= 2) {
-      g = make_geometry(B, H, W, Cw, C_in, C_out, KH, KW, stride, pad_top,
-                        pad_left, OH, OW, nbits, R, chunk, kFused);
-      fits = g.smem() <= static_cast<size_t>(limit);
-    }
-  if (!fits) return kTooLarge;
+  const int found = search_geometry(B, H, W, Cw, C_in, C_out, KH, KW, stride,
+                                    pad_top, pad_left, OH, OW, nbits, kFused,
+                                    &g);
+  if (found != 0) return found;
+  cudaError_t e = cudaSuccess;
   const size_t smem = g.smem();
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(bitplane_conv_kernel<kFused>,
@@ -429,4 +441,24 @@ extern "C" int bitplane_conv_bn_sign(const void* planes, const void* w,
   return launch<true>(planes, w, tau, flip, out, B, H, W, Cw, C_in, C_out,
                       KH, KW, stride, pad_top, pad_left, OH, OW, nbits,
                       stream);
+}
+
+// What bitplane_conv() (fused = 0) or bitplane_conv_bn_sign() (fused = 1)
+// launches for these sizes (common.cuh: launch_query); kTooLarge where no
+// band and chunk fit.
+extern "C" int bitplane_conv_query(int B, int H, int W, int Cw, int C_in,
+                                   int C_out, int KH, int KW, int stride,
+                                   int pad_top, int pad_left, int OH, int OW,
+                                   int nbits, int fused, int* out,
+                                   const char** name) {
+  Geometry g{};
+  const int found = search_geometry(B, H, W, Cw, C_in, C_out, KH, KW, stride,
+                                    pad_top, pad_left, OH, OW, nbits,
+                                    fused != 0, &g);
+  if (found != 0) return found;
+  const dim3 grid((OH + g.R - 1) / g.R, B);
+  return fused ? launch_query(bitplane_conv_kernel<true>, grid,
+                              dim3(kThreads), g.smem(), out, name)
+               : launch_query(bitplane_conv_kernel<false>, grid,
+                              dim3(kThreads), g.smem(), out, name);
 }

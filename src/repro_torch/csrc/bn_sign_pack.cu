@@ -139,3 +139,22 @@ extern "C" int bn_sign_pack(const void* x, const void* tau, const void* flip,
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// What bn_sign_pack() launches for these sizes (common.cuh: launch_query).
+extern "C" int bn_sign_pack_query(int M, int C, int aligned, int sms,
+                                  int* out, const char** name) {
+  const int Cw = (C + kWarp - 1) / kWarp;
+  if (aligned) {
+    const int slabs = (C + kSlab - 1) / kSlab;
+    const long long tiles = (static_cast<long long>(M) + kRows - 1) / kRows;
+    long long walkers =
+        (static_cast<long long>(sms) * kWarpsPerSm + slabs - 1) / slabs;
+    if (walkers > tiles) walkers = tiles;
+    return launch_query(bn_sign_pack_aligned_kernel,
+                        dim3(blocks_for_warps(slabs * walkers)),
+                        dim3(kBlockThreads), 0, out, name);
+  }
+  return launch_query(bn_sign_pack_kernel,
+                      dim3(blocks_for_warps(static_cast<long long>(M) * Cw)),
+                      dim3(kBlockThreads), 0, out, name);
+}

@@ -44,4 +44,28 @@ inline unsigned int blocks_for_warps(long long warps) {
                                    kWarpsPerBlock);
 }
 
+// The query entries (``<entry>_query``): what a launcher would launch for
+// the given sizes, without launching, for the shared-memory preflight
+// (src/repro_torch/analysis/smem.py) to hold its estimates to.  out[0..8]
+// = grid x, y, z, block x, y, z, dynamic shared memory bytes, then the
+// kernel's registers a thread and static shared memory bytes
+// (cudaFuncGetAttributes); *name = the kernel's symbol (cudaFuncGetName),
+// which names its line in the ptxas report.
+template <class... Args>
+int launch_query(void (*kernel)(Args...), dim3 grid, dim3 block,
+                 size_t smem, int* out, const char** name) {
+  cudaFuncAttributes attr{};
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e == cudaSuccess)
+    e = cudaFuncGetName(name, reinterpret_cast<const void*>(kernel));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int vals[9] = {static_cast<int>(grid.x), static_cast<int>(grid.y),
+                       static_cast<int>(grid.z), static_cast<int>(block.x),
+                       static_cast<int>(block.y), static_cast<int>(block.z),
+                       static_cast<int>(smem), attr.numRegs,
+                       static_cast<int>(attr.sharedSizeBytes)};
+  for (int i = 0; i < 9; ++i) out[i] = vals[i];
+  return 0;
+}
+
 }  // namespace repro

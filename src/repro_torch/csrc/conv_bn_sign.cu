@@ -253,3 +253,38 @@ extern "C" int binary_conv(const void* x, const void* w, const void* corr,
                        KH, KW, stride, pad_top, pad_left, OH, OW, k_true,
                        tile, vec16, stream);
 }
+
+namespace {
+
+template <int kWN, bool kFused>
+int query_tile(long long M, int C_out, int vec16, int* out,
+               const char** name) {
+  constexpr int kBM = 2 * 16 * 2;
+  constexpr int kBN = 2 * 8 * kWN;
+  const dim3 grid(static_cast<unsigned int>((M + kBM - 1) / kBM),
+                  (C_out + kBN - 1) / kBN);
+  constexpr size_t kSmem = conv_smem_bytes<2, kWN>();
+  return vec16 ? launch_query(conv_mma_kernel<2, kWN, kFused, true>, grid,
+                              dim3(kMmaThreads), kSmem, out, name)
+               : launch_query(conv_mma_kernel<2, kWN, kFused, false>, grid,
+                              dim3(kMmaThreads), kSmem, out, name);
+}
+
+template <bool kFused>
+int query(long long M, int C_out, int tile, int vec16, int* out,
+          const char** name) {
+  if (tile == 1) return query_tile<4, kFused>(M, C_out, vec16, out, name);
+  if (tile == 2) return query_tile<8, kFused>(M, C_out, vec16, out, name);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// What conv_bn_sign() (fused = 1) or binary_conv() (fused = 0) launches for
+// a (B * OH * OW, C_out) output (common.cuh: launch_query).
+extern "C" int conv_query(int B, int OH, int OW, int C_out, int tile,
+                          int vec16, int fused, int* out, const char** name) {
+  const long long M = static_cast<long long>(B) * OH * OW;
+  return fused ? query<true>(M, C_out, tile, vec16, out, name)
+               : query<false>(M, C_out, tile, vec16, out, name);
+}

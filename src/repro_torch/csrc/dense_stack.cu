@@ -526,3 +526,23 @@ extern "C" int dense_stack_clusters(int rows, int cluster, int lds,
       rows == 16 ? clusters_that_fit<1>(cluster, smem, static_cast<int*>(n))
                  : clusters_that_fit<2>(cluster, smem, static_cast<int*>(n)));
 }
+
+// What dense_stack() launches for M rows in (rows, cluster) tiles at row
+// stride lds (common.cuh: launch_query); the cluster's dimensions are
+// (cluster, 1, 1).
+extern "C" int dense_stack_query(int M, int rows, int cluster, int lds,
+                                 int vec16, int* out, const char** name) {
+  if (rows != 16 && rows != 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned int>((M + rows - 1) / rows) * cluster);
+  const size_t smem = stack_smem(rows, lds);
+  if (rows == 16)
+    return vec16 ? launch_query(dense_stack_kernel<1, true>, grid,
+                                dim3(kStackThreads), smem, out, name)
+                 : launch_query(dense_stack_kernel<1, false>, grid,
+                                dim3(kStackThreads), smem, out, name);
+  return vec16 ? launch_query(dense_stack_kernel<2, true>, grid,
+                              dim3(kStackThreads), smem, out, name)
+               : launch_query(dense_stack_kernel<2, false>, grid,
+                              dim3(kStackThreads), smem, out, name);
+}

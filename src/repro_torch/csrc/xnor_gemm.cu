@@ -246,3 +246,51 @@ extern "C" int xnor_gemm_bn_sign(const void* a, const void* b,
   return launch<true>(a, b, tau, flip, out, M, N, Kw, k_true, route, vec16,
                       stream);
 }
+
+namespace {
+
+template <int kWM, int kWN, bool kFused>
+int query_mma(int M, int N, int vec16, int* out, const char** name) {
+  constexpr int kBM = 2 * 16 * kWM;
+  constexpr int kBN = 2 * 8 * kWN;
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  constexpr size_t kSmem = mma_smem_bytes<kWM, kWN, kStages>();
+  return vec16 ? launch_query(xnor_mma_kernel<kWM, kWN, kFused, true>, grid,
+                              dim3(kMmaThreads), kSmem, out, name)
+               : launch_query(xnor_mma_kernel<kWM, kWN, kFused, false>, grid,
+                              dim3(kMmaThreads), kSmem, out, name);
+}
+
+template <int kRows, bool kFused>
+int query_small(int N, int Kw, int* out, const char** name) {
+  const int chunks = (Kw + kChunk - 1) / kChunk;
+  const int warps = chunks < kSmallWarps ? (chunks > 0 ? chunks : 1)
+                                         : kSmallWarps;
+  return launch_query(xnor_small_kernel<kRows, kFused>,
+                      dim3((N + kWarp - 1) / kWarp), dim3(warps * kWarp), 0,
+                      out, name);
+}
+
+template <bool kFused>
+int query(int M, int N, int Kw, int route, int vec16, int* out,
+          const char** name) {
+  if (route == 0) {
+    if (M <= 1) return query_small<1, kFused>(N, Kw, out, name);
+    if (M <= 2) return query_small<2, kFused>(N, Kw, out, name);
+    if (M <= 4) return query_small<4, kFused>(N, Kw, out, name);
+    return query_small<kSmallMaxRows, kFused>(N, Kw, out, name);
+  }
+  if (route == 1) return query_mma<2, 4, kFused>(M, N, vec16, out, name);
+  if (route == 2) return query_mma<4, 8, kFused>(M, N, vec16, out, name);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// What xnor_gemm() (fused = 0) or xnor_gemm_bn_sign() (fused = 1) launches
+// for these sizes (common.cuh: launch_query).
+extern "C" int xnor_gemm_query(int M, int N, int Kw, int route, int vec16,
+                               int fused, int* out, const char** name) {
+  return fused ? query<true>(M, N, Kw, route, vec16, out, name)
+               : query<false>(M, N, Kw, route, vec16, out, name);
+}

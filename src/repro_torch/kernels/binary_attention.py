@@ -29,11 +29,13 @@ The wrapper launches the kernel and takes CUDA tensors only;
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.core import binarize as B
 from repro_torch.kernels import _build
+from repro_torch.kernels import smem as S
 
 # Additive mask value: finite, so a row whose every key is masked averages
 # V uniformly instead of turning to NaN (the reference's constant).
@@ -43,11 +45,40 @@ NEG_INF = -1e30
 # takes at most two blocks.
 MAX_DV = 2 * 256
 
+# csrc/binary_attention.cu's C entry points, its query entry among them
+ENTRIES = {"binary_attention": "ppppiiiiiiiiffiiip",
+           "binary_attention_query": "iiiiipp"}
+# csrc/binary_attention.cu: keys a tile, the widest V slice a block (in
+# 8-column groups), the score table's words
+ATT_KEYS, ATT_MAX_NV, ATT_TABLE = 32, 32, 32 * S.BK + 4
+
 
 def attention_scale(d: int) -> float:
     """``d ** -0.5`` rounded to float32, the score scale of both the kernel
     and its plain version."""
     return float(torch.tensor(d, dtype=torch.float32) ** -0.5)
+
+
+@functools.lru_cache(maxsize=4096)
+def attention_estimate(b: int, sq: int, hq: int, dw: int,
+                       dv: int) -> S.LaunchEstimate:
+    """K8's launch on (B, Sq, Hq, Dw) packed queries and Dv-wide V, in the
+    instance its launcher's branches take: K staged in shared memory where
+    a head is one stage of words, 16-row query tiles for short queries."""
+    staged = dw <= S.BK
+    nv = 16 if staged and sq > 16 and dv <= 128 else ATT_MAX_NV
+    rows = 16 if staged and sq <= 16 else 64
+    terms = [S.SmemTerm("v_ring", 2 * ATT_KEYS * (8 * nv + 4) * 4)]
+    if staged:
+        terms += [S.SmemTerm("k_ring", 2 * ATT_KEYS * S.LDS * 4),
+                  S.SmemTerm("q_tile", rows * S.LDS * 4),
+                  S.SmemTerm("score_table", ATT_TABLE * 4)]
+    route = f"{rows}rows_nv{nv}" + ("_staged" if staged else "_global")
+    return S.LaunchEstimate(
+        "binary_attention", route,
+        (hq, S.ceil_div(sq, rows), b * S.ceil_div(dv, 8 * nv)),
+        S.MMA_THREADS, tuple(terms),
+        ("binary_attention", "binary_attention_query", (b, sq, hq, dw, dv)))
 
 
 def binary_attention_packed(q_packed: torch.Tensor, k_packed: torch.Tensor,
@@ -86,8 +117,7 @@ def binary_attention_packed(q_packed: torch.Tensor, k_packed: torch.Tensor,
                         dev)
     pv = _build.require(v, "v", torch.float32, (b, skv, hkv, dv), dev)
     out = torch.empty((b, sq, hq, dv), dtype=torch.float32, device=dev)
-    lib = _build.load("binary_attention",
-                      {"binary_attention": "ppppiiiiiiiiffiiip"})
+    lib = _build.load("binary_attention", ENTRIES)
     err = lib.binary_attention(
         pq, pk, pv, out.data_ptr(), b, sq, skv, hq, hkv, dw, dv, d_true,
         ctypes.c_float(attention_scale(d_true)),

@@ -22,24 +22,33 @@ Each wrapper launches its kernel and takes CUDA tensors only;
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core import binarize as B
 from repro_torch.kernels import _build
 from repro_torch.kernels import binary_matmul as _bmm
+from repro_torch.kernels import smem as S
 
 # csrc/conv_bn_sign.cu: K3 (fused epilogue) and K7 (int32 epilogue)
-_CONV_ENTRIES = {"conv_bn_sign": "pppppp" + "i" * 15 + "p",
-                 "binary_conv": "pppp" + "i" * 15 + "p"}
+CONV_ENTRIES = {"conv_bn_sign": "pppppp" + "i" * 15 + "p",
+                "binary_conv": "pppp" + "i" * 15 + "p",
+                "conv_query": "i" * 7 + "pp"}
 # csrc/bitplane_conv.cu: its two C entry points, and kTooLarge: no band
 # and channel chunk of K1 fit one block's shared memory
-_BITPLANE_ENTRIES = {"bitplane_conv": "ppp" + "i" * 14 + "p",
-                     "bitplane_conv_bn_sign": "ppppp" + "i" * 14 + "p"}
+BITPLANE_ENTRIES = {"bitplane_conv": "ppp" + "i" * 14 + "p",
+                    "bitplane_conv_bn_sign": "ppppp" + "i" * 14 + "p",
+                    "bitplane_conv_query": "i" * 15 + "pp"}
 BITPLANE_TOO_LARGE = -1
 # K3/K7's output tiles (csrc/conv_bn_sign.cu), (pixels, channels), chosen
 # by shape (:func:`conv_tile`).
 TILE_64X64, TILE_64X128 = 1, 2
+CONV_RING = 2                 # csrc/conv_bn_sign.cu: the operand ring's stages
+# csrc/bitplane_conv.cu: a block's threads, the fused instance's channel
+# chunk, the output stage's row stride, the pixels a band aims at
+K1_THREADS, K1_CHUNK, K1_STAGE_LD, K1_MIN_PIXELS = 128, 64, 72, 128
 
 
 def conv_geometry(input_hw: tuple[int, int], kh: int, kw: int, stride: int,
@@ -157,13 +166,68 @@ def _bitplane_operands(x_planes, w_packed, rowsum, *, kh, kw, stride, pads,
     return dev, ptrs, sizes
 
 
-def _bitplane_check(err: int, what: str, *, kh, w, c_in, nbits, k_true,
-                    chunk) -> None:
+def _bitplane_terms(h, w, cw, c_in, kh, kw, stride, ow, nbits, rows, chunk,
+                    fused) -> tuple[S.SmemTerm, ...]:
+    rows_b = (rows - 1) * stride + kh
+    wb = (ow - 1) * stride + kw
+    kpad = S.ceil_div(kh * kw * c_in, 32) * 32
+    terms = [S.SmemTerm("planes_band",
+                        S.round16(nbits * rows_b * w * cw * 4)),
+             S.SmemTerm("output_stage", 4 * 16 * K1_STAGE_LD * 4),
+             S.SmemTerm("chunk_weights", S.round16(chunk * (kpad + 16))),
+             S.SmemTerm("depth_offsets", S.round16(kpad * 4)),
+             S.SmemTerm("decoded_band", S.round16(rows_b * wb * c_in))]
+    if fused:
+        terms.append(S.SmemTerm("tau_flip", 2 * K1_CHUNK * 4))
+    return tuple(terms)
+
+
+@functools.lru_cache(maxsize=4096)
+def bitplane_estimate(bsz: int, h: int, w: int, cw: int, c_in: int,
+                      c_out: int, kh: int, kw: int, stride: int, pad_top: int,
+                      pad_left: int, oh: int, ow: int, nbits: int,
+                      fused: bool) -> S.LaunchEstimate:
+    """K1's launch (``fused``: K1-fused) in the band of R output rows and
+    the channel chunk its launcher's search (``csrc/bitplane_conv.cu``)
+    takes: the largest chunk of 64, 32 (then 16, 8 for the int32
+    instance), then the largest band from ceil(128 / OW) rows halving to
+    1, that fits a block.  Where none fits, the smallest, which the
+    launcher refuses."""
+    chunks = (64, 32) if fused else (64, 32, 16, 8)
+    bands, r = [], min(S.ceil_div(K1_MIN_PIXELS, ow), oh)
+    while r >= 1:
+        bands.append(r)
+        r = r // 2 if r > 1 else 0
+    for rows in bands:
+        for chunk in chunks:
+            terms = _bitplane_terms(h, w, cw, c_in, kh, kw, stride, ow,
+                                    nbits, rows, chunk, fused)
+            if sum(t.bytes for t in terms) <= S.SMEM_BUDGET:
+                break
+        else:
+            continue
+        break
+    return S.LaunchEstimate(
+        "bitplane_conv_bn_sign" if fused else "bitplane_conv",
+        f"band{rows}_chunk{chunk}", (S.ceil_div(oh, rows), bsz, 1),
+        K1_THREADS, terms, ("bitplane_conv", "bitplane_conv_query",
+                            (bsz, h, w, cw, c_in, c_out, kh, kw, stride,
+                             pad_top, pad_left, oh, ow, nbits, int(fused))))
+
+
+def _bitplane_check(err: int, what: str, sizes, fused: bool) -> None:
+    """Raise for the error a K1 entry returned: ``SmemBudgetError`` where
+    its search found no band and chunk that fit a block (nothing
+    launched), with :func:`bitplane_estimate`'s breakdown."""
     if err == BITPLANE_TOO_LARGE:
-        raise ValueError(
-            f"{what}: one output row's band ({kh} input rows of W={w} at "
-            f"C_in={c_in}, {nbits} planes) and {chunk} channels' weights of "
-            f"depth {k_true} exceed a block's shared memory")
+        w, c_in, kh, kw, nbits = sizes[2], sizes[4], sizes[6], sizes[7], \
+            sizes[13]
+        raise S.SmemBudgetError(
+            bitplane_estimate(*sizes[:14], fused),
+            detail=f"{what}: one output row's band ({kh} input rows of "
+                   f"W={w} at C_in={c_in}, {nbits} planes) and "
+                   f"{32 if fused else 8} channels' weights of depth "
+                   f"{kh * kw * c_in} exceed a block's shared memory")
     _build.check(err, what)
 
 
@@ -180,19 +244,19 @@ def bitplane_conv2d_packed(x_planes: torch.Tensor, w_packed: torch.Tensor,
     exact integer conv of the raw input against sign(W) with zero padding.
     The kernel decodes the planes to the raw values and convolves them on
     the tensor cores, so it needs no rowsum; the wrapper still checks it,
-    the plan's operand.  Raises ``ValueError`` for an input whose band of
-    rows and 8 channels' weights exceed one block's shared memory.  Adds
-    one to ``bitplane_conv2d_packed.launches`` per kernel launch.
+    the plan's operand.  Raises ``SmemBudgetError`` (a ``ValueError``),
+    before launching, for an input whose band of rows and 8 channels'
+    weights exceed one block's shared memory.  Adds one to
+    ``bitplane_conv2d_packed.launches`` per kernel launch.
     """
     dev, ptrs, sizes = _bitplane_operands(
         x_planes, w_packed, rowsum, kh=kh, kw=kw, stride=stride, pads=pads,
         out_hw=out_hw, c_out=c_out, k_true=k_true, nbits=nbits)
     out = torch.empty((x_planes.shape[1], *out_hw, c_out),
                       dtype=torch.int32, device=dev)
-    lib = _build.load("bitplane_conv", _BITPLANE_ENTRIES)
+    lib = _build.load("bitplane_conv", BITPLANE_ENTRIES)
     err = lib.bitplane_conv(*ptrs, out.data_ptr(), *sizes)
-    _bitplane_check(err, "bitplane_conv", kh=kh, w=x_planes.shape[3],
-                    c_in=sizes[4], nbits=nbits, k_true=k_true, chunk=8)
+    _bitplane_check(err, "bitplane_conv", sizes, False)
     bitplane_conv2d_packed.launches += 1
     return out
 
@@ -215,9 +279,9 @@ def bitplane_conv2d_bn_sign_packed(x_planes: torch.Tensor,
     (C_out,) f32.  Returns (B, OH, OW, ceil(C_out/32)) words,
     bit-identical to ``bn_sign_pack`` of :func:`bitplane_conv2d_packed`'s
     output.  The kernel takes channel chunks of 64 or 32 only (a word
-    never spans two), so it raises ``ValueError`` for an input whose band
-    of rows and 32 channels' weights exceed one block's shared memory;
-    nothing reroutes.  Adds one to
+    never spans two), so it raises ``SmemBudgetError`` (a ``ValueError``)
+    for an input whose band of rows and 32 channels' weights exceed one
+    block's shared memory, before launching; nothing reroutes.  Adds one to
     ``bitplane_conv2d_bn_sign_packed.launches`` per kernel launch.
     """
     dev, ptrs, sizes = _bitplane_operands(
@@ -225,14 +289,12 @@ def bitplane_conv2d_bn_sign_packed(x_planes: torch.Tensor,
         out_hw=out_hw, c_out=c_out, k_true=k_true, nbits=nbits)
     out = torch.empty((x_planes.shape[1], *out_hw, B.packed_width(c_out)),
                       dtype=torch.int32, device=dev)
-    lib = _build.load("bitplane_conv", _BITPLANE_ENTRIES)
+    lib = _build.load("bitplane_conv", BITPLANE_ENTRIES)
     err = lib.bitplane_conv_bn_sign(
         *ptrs, _build.require(tau, "tau", torch.float32, (c_out,), dev),
         _build.require(flip, "flip", torch.float32, (c_out,), dev),
         out.data_ptr(), *sizes)
-    _bitplane_check(err, "bitplane_conv_bn_sign", kh=kh,
-                    w=x_planes.shape[3], c_in=sizes[4], nbits=nbits,
-                    k_true=k_true, chunk=32)
+    _bitplane_check(err, "bitplane_conv_bn_sign", sizes, True)
     bitplane_conv2d_bn_sign_packed.launches += 1
     return out
 
@@ -249,6 +311,24 @@ def conv_tile(m: int, n: int, sms: int) -> int:
     if _bmm.fills_card(m, n, (64, 128), sms):
         return TILE_64X128
     return TILE_64X64
+
+
+@functools.lru_cache(maxsize=4096)
+def conv_estimate(bsz: int, oh: int, ow: int, c_out: int, fused: bool,
+                  vec16: bool, sms: int) -> S.LaunchEstimate:
+    """K3's launch (``fused``) or K7's for a (B*OH*OW, C_out) output on a
+    card of ``sms`` SMs, in the tile :func:`conv_tile` picks: the operand
+    ring and a 16-byte row table a pixel of the tile."""
+    m = bsz * oh * ow
+    tile = conv_tile(m, c_out, sms)
+    bn = 128 if tile == TILE_64X128 else 64
+    terms = S.mma_ring(CONV_RING, 64, bn) + (S.SmemTerm("row_table",
+                                                        64 * 16),)
+    return S.LaunchEstimate(
+        "conv_bn_sign" if fused else "binary_conv", f"64x{bn}",
+        (S.ceil_div(m, 64), S.ceil_div(c_out, bn), 1), S.MMA_THREADS, terms,
+        ("conv_bn_sign", "conv_query",
+         (bsz, oh, ow, c_out, tile, int(vec16), int(fused))))
 
 
 def _conv_operands(x_packed, w_packed, correction, *, kh, kw, stride, pads,
@@ -291,7 +371,7 @@ def binary_conv2d_bn_sign_packed(x_packed: torch.Tensor,
     oh, ow = out_hw
     out = torch.empty((bsz, oh, ow, B.packed_width(c_out)),
                       dtype=torch.int32, device=dev)
-    lib = _build.load("conv_bn_sign", _CONV_ENTRIES)
+    lib = _build.load("conv_bn_sign", CONV_ENTRIES)
     err = lib.conv_bn_sign(
         *ptrs, _build.require(tau, "tau", torch.float32, (c_out,), dev),
         _build.require(flip, "flip", torch.float32, (c_out,), dev),
@@ -321,7 +401,7 @@ def binary_conv2d_packed(x_packed: torch.Tensor, w_packed: torch.Tensor,
         pads=pads, out_hw=out_hw, c_out=c_out)
     oh, ow = out_hw
     out = torch.empty((bsz, oh, ow, c_out), dtype=torch.int32, device=dev)
-    lib = _build.load("conv_bn_sign", _CONV_ENTRIES)
+    lib = _build.load("conv_bn_sign", CONV_ENTRIES)
     err = lib.binary_conv(*ptrs, out.data_ptr(), bsz, h, w, cw, c_out, kh,
                           kw, stride, pads[0][0], pads[1][0], oh, ow, k_true,
                           *tile, _build.stream_of(x_packed))

@@ -32,10 +32,16 @@ import torch
 
 from repro_torch.core import binarize as B
 from repro_torch.kernels import _build
+from repro_torch.kernels import smem as S
 
-_ENTRIES = {"xnor_gemm": "pppiiiiiip", "xnor_gemm_bn_sign": "pppppiiiiiip"}
-_STACK_ENTRIES = {"dense_stack": "ppppiiiiiiip",
-                  "dense_stack_clusters": "iiip"}
+# The C entry points of csrc/xnor_gemm.cu and csrc/dense_stack.cu, the
+# launchers' query entries (``analysis.smem.query_card``) among them.
+GEMM_ENTRIES = {"xnor_gemm": "pppiiiiiip",
+                "xnor_gemm_bn_sign": "pppppiiiiiip",
+                "xnor_gemm_query": "iiiiiipp"}
+STACK_ENTRIES = {"dense_stack": "ppppiiiiiiip",
+                 "dense_stack_clusters": "iiip",
+                 "dense_stack_query": "iiiiipp"}
 
 # K4's routes (csrc/xnor_gemm.cu), chosen by shape.  Up to SMALL_M_MAX
 # rows of A the weight bytes bind and the XOR + POPC kernel reads each
@@ -61,7 +67,7 @@ ROUTE_SMALL, ROUTE_MMA_64, ROUTE_MMA_128 = 0, 1, 2
 # the same decision against an 8 MiB VMEM budget; both resolve the BMLP's
 # and the BCNN's stacks to the single launch.
 STACK_L2_BUDGET_BYTES = 16 * 2**20
-STACK_SMEM_BYTES = 232_448
+STACK_SMEM_BYTES = S.SMEM_BUDGET
 STACK_RING_BYTES = 3 * (256 * 48 + 512) * 4   # dense_stack.cu: kRingBytes
 STACK_MAX_TILE_ROWS = 32      # the largest R of stack_tile
 STACK_MAX_STAGES = 16         # csrc/dense_stack.cu: kMaxStages
@@ -70,6 +76,10 @@ STACK_MAX_STAGES = 16         # csrc/dense_stack.cu: kMaxStages
 # the portable cluster size, 16 needs the non-portable opt-in
 # (csrc/dense_stack.cu sets it).
 STACK_TILES = ((16, 16), (16, 8), (32, 8))
+STACK_THREADS = 256           # csrc/dense_stack.cu: a block's threads
+# csrc/xnor_gemm.cu: the tensor-core kernel's pipeline stages; the XOR +
+# POPC kernel's words of K a warp takes and its most warps a block
+GEMM_STAGES, SMALL_CHUNK, SMALL_WARPS = 3, 16, 8
 
 
 def fills_card(m: int, n: int, tile: tuple[int, int], sms: int) -> bool:
@@ -94,6 +104,29 @@ def gemm_route(m: int, n: int, sms: int) -> int:
 def sm_count(dev) -> int:
     """The SM count of CUDA device ``dev``, which the tile rules take."""
     return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@functools.lru_cache(maxsize=4096)
+def gemm_estimate(m: int, n: int, kw: int, fused: bool, vec16: bool,
+                  sms: int) -> S.LaunchEstimate:
+    """K4's launch (``fused``: K4-fused) for (M, Kw) x (N, Kw) words on a
+    card of ``sms`` SMs, on the route :func:`gemm_route` picks: the XOR +
+    POPC kernel's warps over 32 columns a block, or the tensor-core
+    kernel's tile and operand ring."""
+    kernel = "xnor_gemm_bn_sign" if fused else "xnor_gemm"
+    route = gemm_route(m, n, sms)
+    query = ("xnor_gemm", "xnor_gemm_query",
+             (m, n, kw, route, int(vec16), int(fused)))
+    if route == ROUTE_SMALL:
+        rows = next(r for r in (1, 2, 4, SMALL_M_MAX) if m <= r)
+        warps = min(SMALL_WARPS, max(1, S.ceil_div(kw, SMALL_CHUNK)))
+        return S.LaunchEstimate(kernel, f"small{rows}",
+                                (S.ceil_div(n, 32), 1, 1), warps * 32, (),
+                                query)
+    bm, bn = (128, 128) if route == ROUTE_MMA_128 else (64, 64)
+    return S.LaunchEstimate(
+        kernel, f"mma{bm}", (S.ceil_div(n, bn), S.ceil_div(m, bm), 1),
+        S.MMA_THREADS, S.mma_ring(GEMM_STAGES, bm, bn), query)
 
 
 def rows_aligned16(*ptr_kw) -> bool:
@@ -123,7 +156,7 @@ def binary_matmul_packed(a_packed: torch.Tensor, b_packed: torch.Tensor, *,
     """
     m, n, kw, dev, pa, pb, route, vec16 = _operands(a_packed, b_packed)
     out = torch.empty((m, n), dtype=torch.int32, device=dev)
-    lib = _build.load("xnor_gemm", _ENTRIES)
+    lib = _build.load("xnor_gemm", GEMM_ENTRIES)
     err = lib.xnor_gemm(pa, pb, out.data_ptr(), m, n, kw, k_true, route,
                         vec16, _build.stream_of(a_packed))
     _build.check(err, "xnor_gemm")
@@ -146,7 +179,7 @@ def binary_matmul_bn_sign_packed(a_packed: torch.Tensor,
     """
     m, n, kw, dev, pa, pb, route, vec16 = _operands(a_packed, b_packed)
     out = torch.empty((m, B.packed_width(n)), dtype=torch.int32, device=dev)
-    lib = _build.load("xnor_gemm", _ENTRIES)
+    lib = _build.load("xnor_gemm", GEMM_ENTRIES)
     err = lib.xnor_gemm_bn_sign(
         pa, pb, _build.require(tau, "tau", torch.float32, (n,), dev),
         _build.require(flip, "flip", torch.float32, (n,), dev),
@@ -195,7 +228,7 @@ def stack_clusters(dev, buf_words: int) -> dict:
     ``dev`` at once, for activation rows of ``buf_words`` words: the
     cluster launch's occupancy query (``cudaOccupancyMaxActiveClusters``),
     0 where the tile's buffers do not fit a block."""
-    lib = _build.load("dense_stack", _STACK_ENTRIES)
+    lib = _build.load("dense_stack", STACK_ENTRIES)
     with torch.cuda.device(dev):
         fit = {}
         for rows, cluster in STACK_TILES:
@@ -214,10 +247,30 @@ def stack_row_stride(buf_words: int) -> int:
     return -(-buf_words // 32) * 32 + 16
 
 
-def stack_smem_bytes(rows: int, buf_words: int) -> int:
+def stack_terms(rows: int, buf_words: int) -> tuple[S.SmemTerm, ...]:
     """K6's shared memory a block: the weight ring and two activation
-    buffers of ``rows`` rows."""
-    return STACK_RING_BYTES + 2 * rows * stack_row_stride(buf_words) * 4
+    buffers of ``rows`` rows at :func:`stack_row_stride`."""
+    return (S.SmemTerm("weight_ring", STACK_RING_BYTES),
+            S.SmemTerm("activations",
+                       2 * rows * stack_row_stride(buf_words) * 4))
+
+
+def stack_smem_bytes(rows: int, buf_words: int) -> int:
+    """K6's shared memory a block, in bytes (:func:`stack_terms`)."""
+    return sum(t.bytes for t in stack_terms(rows, buf_words))
+
+
+@functools.lru_cache(maxsize=4096)
+def dense_stack_estimate(m: int, rows: int, cluster: int, buf_words: int,
+                         vec16: bool) -> S.LaunchEstimate:
+    """K6's launch for M rows in clusters of ``cluster`` blocks over
+    ``rows``-row tiles, activation rows of ``buf_words`` words."""
+    return S.LaunchEstimate(
+        "dense_stack", f"{rows}x{cluster}",
+        (S.ceil_div(m, rows) * cluster, 1, 1), STACK_THREADS,
+        stack_terms(rows, buf_words),
+        ("dense_stack", "dense_stack_query",
+         (m, rows, cluster, stack_row_stride(buf_words), int(vec16))))
 
 
 def dense_stack_fits(weights: list) -> bool:
@@ -225,12 +278,15 @@ def dense_stack_fits(weights: list) -> bool:
     weights and thresholds fit ``STACK_L2_BUDGET_BYTES`` and (b) a block's
     weight ring and the two activation buffers of the largest M tile fit
     its shared memory (and the stack has at most ``STACK_MAX_STAGES``
-    stages)."""
+    stages): the estimate of a launch at that tile
+    (:func:`dense_stack_estimate`) fits."""
     if not weights or len(weights) > STACK_MAX_STAGES:
         return False
-    smem = stack_smem_bytes(STACK_MAX_TILE_ROWS, stack_buffer_words(weights))
+    launch = dense_stack_estimate(
+        STACK_MAX_TILE_ROWS, STACK_MAX_TILE_ROWS, STACK_TILES[-1][1],
+        stack_buffer_words(weights), True)
     return (dense_stack_bytes(weights) <= STACK_L2_BUDGET_BYTES
-            and smem <= STACK_SMEM_BYTES)
+            and launch.fits(STACK_SMEM_BYTES))
 
 
 _STAGE_NAMES = [(f"weights[{s}]", f"taus[{s}]", f"flips[{s}]")
@@ -255,7 +311,8 @@ def binary_dense_stack_packed(x_packed: torch.Tensor, weights: list,
     bit-identical to chaining :func:`binary_matmul_bn_sign_packed`.  The
     tile, R rows of M to a cluster of C blocks (:func:`stack_tile`), stays
     inside this wrapper; a stack whose buffers do not fit a block's shared
-    memory at that R raises ``ValueError``.  Adds one to
+    memory at that R raises ``SmemBudgetError`` (a ``ValueError``) before
+    launching.  Adds one to
     ``binary_dense_stack_packed.launches`` per kernel launch.
     """
     dev = _build.cuda_device(x_packed, "x_packed")
@@ -293,12 +350,15 @@ def binary_dense_stack_packed(x_packed: torch.Tensor, weights: list,
         buf_words = max(buf_words, prev)
     rows, cluster = stack_tile(m, stack_clusters(dev, buf_words))
     if stack_smem_bytes(rows, buf_words) > STACK_SMEM_BYTES:
-        raise ValueError(f"activation rows of {buf_words} words do not fit "
-                         f"the stack kernel's shared memory at {rows} rows")
+        raise S.SmemBudgetError(
+            dense_stack_estimate(m, rows, cluster, buf_words,
+                                 rows_aligned16(*rows16)),
+            detail=f"activation rows of {buf_words} words do not fit the "
+                   f"stack kernel's shared memory at {rows} rows")
     out = torch.empty((m, prev), dtype=torch.int32, device=dev)
     ptr_type, dim_type = _stack_tables(n_stages)
     ptr_arr, dim_arr = ptr_type(*ptrs), dim_type(*dims)
-    lib = _build.load("dense_stack", _STACK_ENTRIES)
+    lib = _build.load("dense_stack", STACK_ENTRIES)
     err = lib.dense_stack(px, out.data_ptr(), ctypes.addressof(ptr_arr),
                           ctypes.addressof(dim_arr), n_stages, m, kw0, rows,
                           cluster, stack_row_stride(buf_words),

@@ -16,10 +16,18 @@ only; ``kernels/ops.py`` routes CPU tensors to the plain version.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.core import binarize as B
 from repro_torch.kernels import _build
+from repro_torch.kernels import smem as S
+
+# csrc/bitpack.cu's C entry points, its query entry among them
+ENTRIES = {"bitpack": "ppiiip", "bitpack_query": "iiipp"}
+# csrc/bitpack.cu: the aligned path's output words a warp
+WORDS_PER_WARP = 32
 
 
 def packs_aligned(k: int, ptr: int) -> bool:
@@ -27,6 +35,18 @@ def packs_aligned(k: int, ptr: int) -> bool:
     aligned path: rows of whole 32-float words (K % 32 == 0), the data on
     16 bytes.  Every other input takes the warp-per-word path."""
     return k % 32 == 0 and ptr % 16 == 0
+
+
+@functools.lru_cache(maxsize=4096)
+def bitpack_estimate(m: int, k: int, aligned: bool) -> S.LaunchEstimate:
+    """K5's launch on an (M, K) float32 input: a warp per WORDS_PER_WARP
+    words on the aligned path, per word on the other; no shared memory."""
+    words = m * B.packed_width(k)
+    warps = S.ceil_div(words, WORDS_PER_WARP) if aligned else words
+    return S.LaunchEstimate(
+        "bitpack", "aligned" if aligned else "general",
+        (S.blocks_for_warps(warps), 1, 1), S.BLOCK_THREADS, (),
+        ("bitpack", "bitpack_query", (m, k, int(aligned))))
 
 
 def bitpack(x: torch.Tensor) -> torch.Tensor:
@@ -39,7 +59,7 @@ def bitpack(x: torch.Tensor) -> torch.Tensor:
     m, k = x.shape
     px = _build.require(x, "x", torch.float32, (m, k), dev)
     out = torch.empty((m, B.packed_width(k)), dtype=torch.int32, device=dev)
-    lib = _build.load("bitpack", {"bitpack": "ppiiip"})
+    lib = _build.load("bitpack", ENTRIES)
     err = lib.bitpack(px, out.data_ptr(), m, k, int(packs_aligned(k, px)),
                       _build.stream_of(x))
     _build.check(err, "bitpack")

@@ -16,11 +16,21 @@ kept in registers; any other input one warp per output word.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.core import binarize as B
 from repro_torch.kernels import _build
 from repro_torch.kernels import binary_matmul as _bmm
+from repro_torch.kernels import smem as S
+
+# csrc/bn_sign_pack.cu's C entry points, its query entry among them
+ENTRIES = {"bn_sign_pack": "ppppiiiip",
+           "bn_sign_pack_query": "iiiipp"}
+# csrc/bn_sign_pack.cu's aligned path: rows a warp keeps in flight,
+# channels a slab, warps an SM it walks with
+SIGN_ROWS, SIGN_SLAB, SIGN_WARPS_PER_SM = 8, 128, 32
 
 
 def bn_sign_bits_to_words(y: torch.Tensor, tau: torch.Tensor,
@@ -45,6 +55,25 @@ def bn_sign_aligned(c: int, ptr: int) -> bool:
     return c % 4 == 0 and ptr % 16 == 0
 
 
+@functools.lru_cache(maxsize=4096)
+def bn_sign_pack_estimate(m: int, c: int, aligned: bool,
+                          sms: int) -> S.LaunchEstimate:
+    """K2's launch on an (M, C) int32 input on a card of ``sms`` SMs: on
+    the aligned path a warp per slab of channels and walker of rows,
+    else a warp per word; no shared memory."""
+    if aligned:
+        slabs = S.ceil_div(c, SIGN_SLAB)
+        walkers = min(S.ceil_div(sms * SIGN_WARPS_PER_SM, slabs),
+                      S.ceil_div(m, SIGN_ROWS))
+        warps = slabs * walkers
+    else:
+        warps = m * B.packed_width(c)
+    return S.LaunchEstimate(
+        "bn_sign_pack", "aligned" if aligned else "general",
+        (S.blocks_for_warps(warps), 1, 1), S.BLOCK_THREADS, (),
+        ("bn_sign_pack", "bn_sign_pack_query", (m, c, int(aligned), sms)))
+
+
 def bn_sign_pack(x: torch.Tensor, tau: torch.Tensor,
                  flip: torch.Tensor) -> torch.Tensor:
     """K2: fused sign(BN(x)) + bit-pack, (M, C) int32 -> (M, ceil(C/32))
@@ -59,7 +88,7 @@ def bn_sign_pack(x: torch.Tensor, tau: torch.Tensor,
     dev = _build.cuda_device(x, "x")
     px = _build.require(x, "x", torch.int32, (m, c), dev)
     out = torch.empty((m, B.packed_width(c)), dtype=torch.int32, device=dev)
-    lib = _build.load("bn_sign_pack", {"bn_sign_pack": "ppppiiiip"})
+    lib = _build.load("bn_sign_pack", ENTRIES)
     err = lib.bn_sign_pack(
         px, _build.require(tau, "tau", torch.float32, (c,), dev),
         _build.require(flip, "flip", torch.float32, (c,), dev),

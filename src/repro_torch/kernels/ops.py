@@ -11,6 +11,16 @@ Shared argument semantics (every dispatcher in this module):
 * Packed words are ``torch.int32`` tensors with the bit pattern of the
   reference's ``uint32`` words.  The launch geometry stays inside the
   kernel wrappers; there are no block knobs.
+
+On the ``'cuda'`` route each launch calls its kernel's CUDA body
+(``kernels.library``: the wrapper on the op's arguments) directly; while
+a dispatch mode is active (a trace: ``analysis.graph``), or on a tensor
+subclass, it goes through the kernel's torch op
+(``torch.ops.repro_torch.<kernel>``) instead, so the mode sees every
+launch as one op.  A launch whose shared memory cannot fit a block
+raises ``kernels.smem.SmemBudgetError`` before anything launches: K1's
+and K6's launchers refuse it (the other kernels' shared memory is fixed
+and fits), and a trace refuses every launch whose estimate does not fit.
 """
 from __future__ import annotations
 
@@ -18,27 +28,14 @@ import torch
 
 from repro_torch import telemetry
 from repro_torch.core import binarize as B
-from repro_torch.kernels import binary_attention as _batt
 from repro_torch.kernels import binary_conv as _bconv
 from repro_torch.kernels import binary_matmul as _bmm
-from repro_torch.kernels import bitpack as _bp
-from repro_torch.kernels import fused_epilogue as _fe
+from repro_torch.kernels import library as _lib
 from repro_torch.kernels import ref as _ref
 
 # Every kernel wrapper of the package by kernel name; each keeps an
 # integer ``launches`` count of its own kernel launches.
-KERNELS = {
-    "binary_attention": _batt.binary_attention_packed,
-    "binary_conv": _bconv.binary_conv2d_packed,
-    "bitpack": _bp.bitpack,
-    "bitplane_conv": _bconv.bitplane_conv2d_packed,
-    "bitplane_conv_bn_sign": _bconv.bitplane_conv2d_bn_sign_packed,
-    "bn_sign_pack": _fe.bn_sign_pack,
-    "conv_bn_sign": _bconv.binary_conv2d_bn_sign_packed,
-    "dense_stack": _bmm.binary_dense_stack_packed,
-    "xnor_gemm": _bmm.binary_matmul_packed,
-    "xnor_gemm_bn_sign": _bmm.binary_matmul_bn_sign_packed,
-}
+KERNELS = {name: spec.wrapper for name, spec in _lib.SPECS.items()}
 
 
 def launch_counts() -> dict[str, int]:
@@ -63,6 +60,20 @@ def _resolve(backend: str, x: torch.Tensor) -> str:
     if backend != "torch":
         raise ValueError(f"unknown backend {backend!r}")
     return backend
+
+
+# How many dispatch modes (``TorchDispatchMode``, ``FakeTensorMode``) are
+# active: one C call, cheap enough for every launch.
+_dispatch_modes = torch._C._len_torch_dispatch_stack
+
+
+def _launch(kernel: str, *args) -> torch.Tensor:
+    """One launch of ``kernel`` on its op's ``args``: the CUDA body called
+    directly, or the op while a dispatch mode is active or ``args[0]`` is
+    a tensor subclass (a fake tensor)."""
+    if _dispatch_modes() or type(args[0]) is not torch.Tensor:
+        return _lib.CALLS[kernel](*args)
+    return _lib.BODIES[kernel](*args)
 
 
 def dispatch_batch(m: int, kw_words: int) -> str:
@@ -105,7 +116,7 @@ def bitpack(x: torch.Tensor, *, backend: str = "auto") -> torch.Tensor:
     if _resolve(backend, x) == "torch":
         return _ref.bitpack_ref(x)
     x2 = _as_float32(x).reshape(-1, x.shape[-1]).contiguous()
-    out = _bp.bitpack(x2)
+    out = _launch("bitpack", x2)
     return out.reshape(*x.shape[:-1], out.shape[-1])
 
 
@@ -132,10 +143,10 @@ def binary_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                          window=window,
                                          attn_softcap=attn_softcap,
                                          q_offset=q_offset)
-    return _batt.binary_attention_packed(
-        bitpack(q, backend=backend), bitpack(k, backend=backend),
-        v.to(torch.float32).contiguous(), d_true=q.shape[-1], causal=causal,
-        window=window, attn_softcap=attn_softcap, q_offset=q_offset)
+    return _launch("binary_attention", bitpack(q, backend=backend),
+                   bitpack(k, backend=backend),
+                   v.to(torch.float32).contiguous(), q.shape[-1], causal,
+                   window, attn_softcap, q_offset)
 
 
 def binary_matmul(a: torch.Tensor, b: torch.Tensor, *,
@@ -153,7 +164,7 @@ def binary_matmul_packed(a_packed: torch.Tensor, b_packed: torch.Tensor, *,
     """Binary GEMM on pre-packed operands: (M, Kw) x (N, Kw) -> (M, N)
     int32; ``k_true`` is the logical K before packing."""
     if _resolve(backend, a_packed) == "cuda":
-        return _bmm.binary_matmul_packed(a_packed, b_packed, k_true=k_true)
+        return _launch("xnor_gemm", a_packed, b_packed, k_true)
     return _ref.binary_matmul_packed_ref(a_packed, b_packed, k_true)
 
 
@@ -164,8 +175,8 @@ def binary_matmul_bn_sign_packed(a_packed: torch.Tensor,
     """Fused packed GEMM + BN-sign fold + re-bitpack: (M, ceil(N/32))
     words, bit-identical to ``bn_sign_pack(binary_matmul_packed(...))``."""
     if _resolve(backend, a_packed) == "cuda":
-        return _bmm.binary_matmul_bn_sign_packed(a_packed, b_packed, tau,
-                                                 flip, k_true=k_true)
+        return _launch("xnor_gemm_bn_sign", a_packed, b_packed, tau, flip,
+                       k_true)
     return _ref.binary_matmul_bn_sign_packed_ref(a_packed, b_packed, tau,
                                                  flip, k_true)
 
@@ -193,14 +204,14 @@ def binary_dense_stack_packed(stages: list, x_packed: torch.Tensor, *,
     if resident is None:
         resident = _bmm.dense_stack_fits(weights)
     if resident:
-        return _bmm.binary_dense_stack_packed(
-            x_packed.contiguous(), weights, [s["tau"] for s in stages],
-            [s["flip"] for s in stages],
-            k_trues=[s["k_true"] for s in stages])
+        return _launch("dense_stack", x_packed.contiguous(),
+                       [*weights, *(s["tau"] for s in stages),
+                        *(s["flip"] for s in stages)],
+                       [s["k_true"] for s in stages])
     h = x_packed.contiguous()
     for s in stages:
-        h = _bmm.binary_matmul_bn_sign_packed(h, s["w_packed"], s["tau"],
-                                              s["flip"], k_true=s["k_true"])
+        h = _launch("xnor_gemm_bn_sign", h, s["w_packed"], s["tau"],
+                    s["flip"], s["k_true"])
     return h
 
 
@@ -211,7 +222,7 @@ def bn_sign_pack(x: torch.Tensor, tau: torch.Tensor, flip: torch.Tensor, *,
     if _resolve(backend, x) == "torch":
         return _ref.bn_sign_pack_ref(x, tau, flip)
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    out = _fe.bn_sign_pack(x2, tau, flip)
+    out = _launch("bn_sign_pack", x2, tau, flip)
     return out.reshape(*x.shape[:-1], out.shape[-1])
 
 
@@ -230,9 +241,8 @@ def binary_conv2d_packed(plan: dict, x_packed: torch.Tensor, *,
         return _ref.binary_conv2d_packed_ref(
             x_packed, plan["w_packed"], plan["correction"],
             **_conv_geom(plan))
-    return _bconv.binary_conv2d_packed(
-        x_packed.contiguous(), plan["w_packed"], plan["correction"],
-        out_hw=plan["out_hw"], **_conv_geom(plan))
+    return _launch("binary_conv", x_packed.contiguous(), plan["w_packed"],
+                   plan["correction"], _lib.conv_geom(plan))
 
 
 def binary_conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
@@ -260,10 +270,9 @@ def binary_conv2d_bn_sign_packed(plan: dict, folded: dict,
         return _ref.binary_conv2d_bn_sign_packed_ref(
             x_packed, plan["w_packed"], plan["correction"], folded["tau"],
             folded["flip"], **_conv_geom(plan))
-    return _bconv.binary_conv2d_bn_sign_packed(
-        x_packed.contiguous(), plan["w_packed"], plan["correction"],
-        folded["tau"], folded["flip"], out_hw=plan["out_hw"],
-        **_conv_geom(plan))
+    return _launch("conv_bn_sign", x_packed.contiguous(), plan["w_packed"],
+                   plan["correction"], folded["tau"], folded["flip"],
+                   _lib.conv_geom(plan))
 
 
 def _bitplane_geom(plan: dict) -> dict:
@@ -276,14 +285,12 @@ def bitplane_conv2d_packed(plan: dict, x_uint8: torch.Tensor, *,
     ``make_bitplane_conv_plan`` plan: raw (B, H, W, C_in) uint8 ->
     (B, OH, OW, C_out) int32.  The bit planes are packed with plain tensor
     ops and the conv is one kernel launch."""
-    geom = _bitplane_geom(plan)
     if _resolve(backend, x_uint8) == "torch":
         return _ref.bitplane_conv2d_packed_ref(
-            x_uint8, plan["w_packed"], plan["rowsum"], **geom)
+            x_uint8, plan["w_packed"], plan["rowsum"], **_bitplane_geom(plan))
     x_planes = B.pack_bitplanes_uint8(x_uint8, plan["nbits"])
-    return _bconv.bitplane_conv2d_packed(
-        x_planes, plan["w_packed"], plan["rowsum"], out_hw=plan["out_hw"],
-        **geom)
+    return _launch("bitplane_conv", x_planes, plan["w_packed"],
+                   plan["rowsum"], [*_lib.conv_geom(plan), plan["nbits"]])
 
 
 def bitplane_conv2d_bn_sign_packed(plan: dict, folded: dict,
@@ -295,12 +302,11 @@ def bitplane_conv2d_bn_sign_packed(plan: dict, folded: dict,
     bit-identical to :func:`bn_sign_pack` of
     :func:`bitplane_conv2d_packed`.  The bit planes are packed with plain
     tensor ops and the conv with its epilogue is one kernel launch."""
-    geom = _bitplane_geom(plan)
     if _resolve(backend, x_uint8) == "torch":
         return _ref.bitplane_conv2d_bn_sign_packed_ref(
             x_uint8, plan["w_packed"], plan["rowsum"], folded["tau"],
-            folded["flip"], **geom)
+            folded["flip"], **_bitplane_geom(plan))
     x_planes = B.pack_bitplanes_uint8(x_uint8, plan["nbits"])
-    return _bconv.bitplane_conv2d_bn_sign_packed(
-        x_planes, plan["w_packed"], plan["rowsum"], folded["tau"],
-        folded["flip"], out_hw=plan["out_hw"], **geom)
+    return _launch("bitplane_conv_bn_sign", x_planes, plan["w_packed"],
+                   plan["rowsum"], folded["tau"], folded["flip"],
+                   [*_lib.conv_geom(plan), plan["nbits"]])

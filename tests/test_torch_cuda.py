@@ -897,3 +897,149 @@ def test_binary_trained_deploy_launches_k5_k4_per_linear(dev):
     want = SV.make_decode_step(plain)(packed, cache, tok, 16)
     for (p, a), (_, b) in zip(leaves_with_path(got), leaves_with_path(want)):
         assert torch.equal(a, b), p
+
+
+# ---------------------------------------------------------------------------
+# The kernels as torch ops, the fake trace and the shared-memory preflight
+# ---------------------------------------------------------------------------
+
+def _op_cases(dev):
+    """Each kernel's op arguments at small ragged shapes on the card, and
+    the direct wrapper call they stand for."""
+    from repro_torch.kernels import library as lib
+    gen = torch.Generator().manual_seed(27)
+
+    def words(*shape):
+        return B.pack_bits(_pm1(gen, *shape)).to(dev)
+
+    tau, flip = _bn(gen, 40, 50, dev)
+    a, b = words(9, 300), words(40, 300)
+    a1 = words(3, 300)
+    cases = {
+        "bitpack": ((_pm1(gen, 37, 70).to(dev),),
+                    lambda x: bp.bitpack(x)),
+        "bn_sign_pack": ((torch.randint(-60, 60, (9, 40), generator=gen,
+                                        dtype=torch.int32).to(dev), tau,
+                          flip), lambda *t: fe.bn_sign_pack(*t)),
+        "xnor_gemm": ((a1, b, 300), lambda x, y, k: bmm.binary_matmul_packed(
+            x, y, k_true=k)),
+        "xnor_gemm_bn_sign": ((a, b, tau, flip, 300),
+                              lambda x, y, t, f, k:
+                              bmm.binary_matmul_bn_sign_packed(
+                                  x, y, t, f, k_true=k)),
+    }
+    w2 = words(40, 40)
+    cases["dense_stack"] = (
+        (a, [b, w2, tau, tau, flip, flip], [300, 40]),
+        lambda x, st, k: bmm.binary_dense_stack_packed(
+            x, st[:2], st[2:4], st[4:], k_trues=k))
+    plan = {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+            for k, v in bconv.make_conv_plan(
+                _pm1(gen, 40, 3, 3, 33), input_hw=(9, 9), stride=2,
+                padding="VALID").items()}
+    x = words(2, 9, 9, 33)
+    geom = lib.conv_geom(plan)
+    kw = lib.geom_kwargs(geom)
+    cases["binary_conv"] = ((x, plan["w_packed"], plan["correction"], geom),
+                            lambda x_, w_, c_, g_: bconv.binary_conv2d_packed(
+                                x_, w_, c_, **kw))
+    cases["conv_bn_sign"] = (
+        (x, plan["w_packed"], plan["correction"], tau, flip, geom),
+        lambda x_, w_, c_, t_, f_, g_: bconv.binary_conv2d_bn_sign_packed(
+            x_, w_, c_, t_, f_, **kw))
+    bplan = {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+             for k, v in bconv.make_bitplane_conv_plan(
+                 _pm1(gen, 40, 3, 3, 3), input_hw=(12, 10),
+                 nbits=8).items()}
+    planes = B.pack_bitplanes_uint8(torch.randint(
+        0, 256, (2, 12, 10, 3), generator=gen, dtype=torch.uint8).to(dev), 8)
+    bgeom = [*lib.conv_geom(bplan), 8]
+    bkw = lib.geom_kwargs(bgeom)
+    cases["bitplane_conv"] = (
+        (planes, bplan["w_packed"], bplan["rowsum"], bgeom),
+        lambda p_, w_, r_, g_: bconv.bitplane_conv2d_packed(
+            p_, w_, r_, nbits=8, **bkw))
+    cases["bitplane_conv_bn_sign"] = (
+        (planes, bplan["w_packed"], bplan["rowsum"], tau, flip, bgeom),
+        lambda p_, w_, r_, t_, f_, g_: bconv.bitplane_conv2d_bn_sign_packed(
+            p_, w_, r_, t_, f_, nbits=8, **bkw))
+    qp, kp = words(1, 20, 4, 256), words(1, 20, 2, 256)
+    v = torch.randn((1, 20, 2, 256), generator=gen).to(dev)
+    cases["binary_attention"] = (
+        (qp, kp, v, 256, True, 8, 50.0, 0),
+        lambda q, k, v_, d, c, w, s, o: batt.binary_attention_packed(
+            q, k, v_, d_true=d, causal=c, window=w, attn_softcap=s,
+            q_offset=o))
+    return cases
+
+
+def test_each_op_equals_the_direct_wrapper_call(dev):
+    """Registering a kernel as an op changes no value: the op on real card
+    tensors equals the wrapper called directly, bit for bit; it records
+    its launch while a recorder is active, and its estimate is what its
+    launcher's query answers."""
+    from repro_torch.analysis import smem
+    from repro_torch.kernels import library as lib
+    cases = _op_cases(dev)
+    assert set(cases) == set(lib.OPS)
+    for name, (args, direct) in cases.items():
+        ops.reset_launch_counts()
+        with lib.record_launches() as order:
+            got = lib.OPS[name](*args)
+        want = direct(*args)
+        torch.cuda.synchronize()
+        assert order == [name]
+        assert ops.launch_counts()[name] == 2
+        assert torch.equal(got, want), name
+        est = smem.check_against_card(smem.estimate_call(name, args))
+        assert est.registers > 0 and est.fits(), est.breakdown()
+
+
+def test_preflight_raises_before_a_launch_on_the_card(dev):
+    from repro_torch.analysis import smem
+    gen = torch.Generator().manual_seed(577)
+    stages = [{"w_packed": B.pack_bits(_pm1(gen, 577 * 32, 32)).to(dev),
+               "k_true": 32, "tau": torch.zeros(577 * 32, device=dev),
+               "flip": torch.ones(577 * 32, device=dev)}]
+    x = B.pack_bits(_pm1(gen, 4, 32)).to(dev)
+    plan = {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+            for k, v in bconv.make_bitplane_conv_plan(
+                torch.ones(8, 3, 3, 1024), input_hw=(3, 2048),
+                padding="VALID", nbits=8).items()}
+    raw = torch.zeros((1, 3, 2048, 1024), dtype=torch.uint8, device=dev)
+    ops.reset_launch_counts()
+    with pytest.raises(smem.SmemBudgetError):
+        ops.binary_dense_stack_packed(stages, x, resident=True)
+    with pytest.raises(smem.SmemBudgetError):
+        ops.bitplane_conv2d_packed(plan, raw)
+    torch.cuda.synchronize()
+    assert not any(ops.launch_counts().values())
+
+
+@pytest.mark.parametrize("kind", ["bcnn", "bmlp", "transformer"])
+def test_fake_trace_equals_the_real_launches(dev, kind):
+    """The demo forwards' fake trace against a real run on the card:
+    the same kernels in the same order, the same estimates (each held to
+    its launcher's query), the same packedness report."""
+    from repro_torch.analysis import graph, packedness, smem
+    from repro_torch.analysis import report as rep
+    from repro_torch.kernels import library as lib
+    packed = rep.demo_packed(kind)
+    x = rep.forward_input(packed, 8)
+    fake = graph.trace(rep.cuda_forward, packed, x)
+    real_packed = cnn.to_device(packed, dev)
+    ops.reset_launch_counts()
+    with lib.record_launches() as order:
+        real = graph.trace(rep.cuda_forward, real_packed, x.to(dev),
+                           fake=False)
+    torch.cuda.synchronize()
+    assert order == [ln.kernel for ln in fake.launches()]
+    assert real.launches() == fake.launches()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    assert counts == {k: order.count(k) for k in set(order)}
+    for op in fake.ops:
+        if op.kernel:
+            smem.check_against_card(op.estimate)
+    policy = packedness.model_policy(kind)
+    assert packedness.analyze_trace(real, policy).to_json() == \
+        packedness.analyze_trace(fake, policy).to_json()

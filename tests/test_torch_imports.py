@@ -70,6 +70,13 @@ def test_port_imports_no_jax_and_no_reference():
     assert {"repro_torch.distributed.fsdp", "repro_torch.configs.shapes",
             "repro_torch.launch.specs",
             "repro_torch.launch.dryrun"} <= set(names)
+    # and the static analysis and launch probes' slice
+    assert {"repro_torch.kernels.library", "repro_torch.analysis",
+            "repro_torch.analysis.graph", "repro_torch.analysis.packedness",
+            "repro_torch.analysis.smem", "repro_torch.analysis.collectives",
+            "repro_torch.analysis.lint", "repro_torch.analysis.report",
+            "repro_torch.analysis.__main__",
+            "repro_torch.telemetry.probes"} <= set(names)
     assert leaked == []
 
 
@@ -87,7 +94,8 @@ def test_port_sources_name_no_jax_or_reference_import():
     reaches when they run."""
     files = [os.path.join(REPO, n)
              for n in ("chip_smoke.py", "chip_conv_tiles.py",
-                       "chip_attention_times.py", "chip_train_profile.py")]
+                       "chip_attention_times.py", "chip_train_profile.py",
+                       "chip_forwards_ab.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     bad = [(f, m) for f in files for m in _imports(f)
