@@ -109,14 +109,22 @@ Phases, each printing its lines:
 10. sharded training (``make_train_step(..., mesh=)``,
    ``distributed/fsdp.py``), every mesh position on the one card:
    starcoder2-3b at its published widths and depth, (4, 512), seed 0,
-   one step each in ``float`` on (2, 2) and (4, 1) and in ``binary`` on
-   (2, 2), FSDP, each from the same state and batch as an unsharded step
-   and held to it (a data split is a microbatch split: phase 9's
-   bounds), (4, 1) also to ``microbatches=4``, which takes the same row
-   slices; every position's resident bytes against the specs' reckoning,
-   the counted gathers, reductions and partial sums against
+   one step each in ``float`` on (2, 2), (4, 1) and (1, 4) and in
+   ``binary`` on (2, 2), FSDP over ``data`` and tensor parallelism over
+   ``model`` where a block splits on whole units (attention and FFN on
+   (2, 2), the FFN alone on (1, 4)), each from the same state and batch
+   as an unsharded step and held to it (a data split is a microbatch
+   split: phase 9's bounds; a float mesh that splits a block holds
+   grad_norm at bfloat16 within ``TP_BF16_NORM_RTOL``, since the card's
+   bfloat16 products round apart from the split ones, and within phase
+   9's bound at float32 activations, where it runs again), (4, 1) also
+   to ``microbatches=4``, which takes the same row slices; every
+   position's resident bytes against
+   the specs' reckoning, the counted gathers, reductions and partial
+   sums of the weights and the tensor-parallel activations against
    ``fsdp.step_traffic``, ms a step, tokens/s and the peak beside the
-   reckoning; the (2, 2)-trained binary tree made whole, packed and
+   reckoning and beside the FSDP-only step's readings (PERF.md §5); the
+   (2, 2)-trained binary tree made whole, packed and
    served (K5 = K4 = 181, equal to the plain route); gemma2-9b's
    per-position bytes on (2, 2), (4, 1) and 16 x 16 from the dry run;
 11. static analysis and launch probes (``repro_torch.analysis``,
@@ -137,7 +145,14 @@ Phases, each printing its lines:
    ``--check`` CLIs; the host cost the ``ops`` dispatcher adds to a
    launch beside the wrapper called directly (µs, median; at most
    HOST_ADDED_MAX_US), and what the op adds where a trace goes through
-   it.
+   it;
+12. the examples (``repro_torch.examples``), each ``main`` on the card
+   with its reference's default flags, with the launch counts set to 0
+   just before it and read just after: the quickstart (K5 x2, K4), the
+   bit-plane first layer (K5, K4, K1), the BMLP trained with the STE and
+   served packed (K5, K4 x2, K2, K6), the binary-weight LM through
+   ``BatchedServer`` (its unpack route launches no kernel); each returns
+   0, its checks held.
 
 Every kernel is held to its plain version exactly, but for the attention
 kernel (K8), whose float softmax is held within rtol = atol = 2e-5 (the
@@ -3142,8 +3157,13 @@ def phase9_training(drv, dev) -> dict:
 
 # Phase 10: sharded training (``trainer.make_train_step(..., mesh=)``),
 # every position of each mesh on the one card.  starcoder2-3b at phase
-# 9's published widths and depth, (B, S) = TRAIN_BATCH, seed 0, FSDP
-# (``param_specs`` with fsdp=True, the reference's launcher's specs).
+# 9's published widths and depth, (B, S) = TRAIN_BATCH, seed 0: FSDP over
+# the data axis (``param_specs`` with fsdp=True, the reference's
+# launcher's specs) and tensor parallelism over ``model`` wherever a
+# block splits on whole units (``fsdp.split_blocks``): its 24 query heads
+# over 2 KV heads split over 2 positions, not 4; its d_ff 12288 over
+# both.  So (2, 2) runs attention and FFN tensor-parallel, (1, 4) its FFN
+# only (attention falls back to the whole-weight gather), (4, 1) none.
 # Each sharded step is held to the unsharded step from the same state and
 # batch: the data slices are microbatches of it, so phase 9's microbatch
 # bounds hold (loss rtol 1e-3, grad_norm rtol 1e-4, mu within
@@ -3154,8 +3174,33 @@ def phase9_training(drv, dev) -> dict:
 # mu 2.3e-07 of a leaf's largest (the clip scale 1 / grad_norm moves
 # with the norm); the bounds leave 4-10x of it.  Each run's second step
 # is timed warm: the first carries the new shapes' first launches.
-TRAIN_MESHES = (("float", (2, 2)), ("float", (4, 1)), ("binary", (2, 2)))
+# A tensor-parallel step sums its row-parallel partial outputs and its
+# column-parallel partial input gradients in float32 and rounds each sum
+# once, as the unsplit bfloat16 product rounds its float32 sum once.  On
+# the CPU that makes the bfloat16 steps agree (grad_norm 1.9e-5); on the
+# card cuBLAS's bfloat16 product is not the exact product rounded once
+# (off it in 0.67 % of w_down's outputs, where the split's float32 sum is
+# off in 0.19 %: chip_tp_parity.py), so the split steps round apart:
+# grad_norm 5.6e-4 on (2, 2) and 7.0e-4 on (1, 4) from the unsharded
+# step (H100 readings, PERF.md §6; the unsharded bfloat16 step reads
+# 6.9e-4 from its float32 twin).  So a float mesh whose step splits a
+# block over 'model' holds grad_norm at bfloat16 within TP_BF16_NORM_RTOL,
+# set from those readings, loss and mu within phase 9's bounds; and it
+# runs again at float32 activations (state, batch and seed alike), held
+# within phase 9's float32 bounds (loss 1e-3, grad_norm 1e-4, mu 1e-4 of
+# a leaf's largest), where it read loss and grad_norm equal and mu
+# 3.7e-06.  The binary (2, 2) step holds all of phase 9's bfloat16 bounds
+# (grad_norm 6.8e-06): its products are integers.
+# FSDP_ONLY holds the readings of the step before it split blocks over
+# 'model' (every weight gathered whole; H100 80GB HBM3 at 700 W, PERF.md
+# §5): warm ms and peak bytes, printed beside this run's.
+TRAIN_MESHES = (("float", (2, 2)), ("float", (4, 1)), ("float", (1, 4)),
+                ("binary", (2, 2)))
 SAME_ROWS = dict(loss_rtol=1e-6, norm_rtol=1e-6, mu=1e-6)
+TP_BF16_NORM_RTOL = 2e-3    # about three times the larger reading
+FSDP_ONLY = {("float", (2, 2)): (1153.6, 53.65e9),
+             ("float", (4, 1)): (2177.6, 53.13e9),
+             ("binary", (2, 2)): (2115.1, 54.30e9)}
 TRAIN_SIZES = {"gemma2-9b": ((2, 2), (4, 1))}
 
 
@@ -3206,7 +3251,7 @@ def mu_gap(placed_mu, host_mu, dev) -> tuple[float, int]:
     return worst, far
 
 
-def sharded_run(what, cfg, tc, shape, dev, batch, check
+def sharded_run(what, cfg, tc, shape, dev, batch, check, what_key=None
                 ) -> tuple[dict, list, dict]:
     """A fresh full-width state placed on a ``shape`` mesh of the one card
     by ``trainer.state_specs``, one step: the resident bytes of every
@@ -3260,7 +3305,8 @@ def sharded_run(what, cfg, tc, shape, dev, batch, check
     want = FS.step_traffic(meta, SH.param_specs(meta, mesh), mesh,
                            microbatches=tc.microbatches,
                            compress=tc.compress_grads,
-                           grads_bf16=tc.grads_bf16)
+                           grads_bf16=tc.grads_bf16, cfg=cfg, batch=batch)
+    split = sorted(FS.split_blocks(cfg, mesh.shape["model"]))
     metrics = telemetry.default().metrics
     before = {k: metrics.value(k) for k in FS.COUNTERS}
     step = TR.make_train_step(cfg, tc, mesh=mesh)
@@ -3282,7 +3328,8 @@ def sharded_run(what, cfg, tc, shape, dev, batch, check
            "lr": float(m["lr"]), "ms": ms, "tokens_per_s": b * s / ms * 1e3,
            "peak": peak, "reckon": reck["total"], "held": held[0],
            "traffic": got}
-    log(f"train {what}: loss {out['loss']:.7g} grad_norm "
+    log(f"train {what}: tensor-parallel blocks {split}; loss "
+        f"{out['loss']:.7g} grad_norm "
         f"{out['grad_norm']:.7g}; {ms:.6g} ms a step ({out['tokens_per_s']:.6g}"
         f" tokens/s); every position holds {held[0]} bytes = the specs' "
         f"reckoning; {distinct} bytes of distinct copies on the card "
@@ -3298,9 +3345,14 @@ def sharded_run(what, cfg, tc, shape, dev, batch, check
     e1.record()
     torch.cuda.synchronize()
     out["ms_warm"] = e0.elapsed_time(e1)
+    out["peak"] = max(out["peak"], torch.cuda.max_memory_allocated() - base)
+    fsdp_only = FSDP_ONLY.get(what_key)
     log(f"train {what}: step 1, warm: loss {float(m['loss']):.7g}, "
         f"{out['ms_warm']:.6g} ms ({b * s / out['ms_warm'] * 1e3:.6g} "
-        f"tokens/s)")
+        f"tokens/s); peak over both steps {out['peak']} bytes against the "
+        f"reckoning {reck['total']}" + (
+            f"; the FSDP-only step read {fsdp_only[0]} ms warm and a peak "
+            f"of {fsdp_only[1]:.4g} bytes" if fsdp_only else ""))
     return out, failed, state
 
 
@@ -3317,8 +3369,8 @@ def hold_to(what, got, ref, bounds, dev, placed_mu) -> list[str]:
         f"bound {bounds['norm_rtol']}); mu max abs diff {worst:.3g} of its "
         f"leaf's largest (bound {bounds['mu']}), {far} elements past "
         f"{MICRO_NEAR} of the value plus {MICRO_NEAR} of the largest")
-    if l_r > bounds["loss_rtol"] or n_r > bounds["norm_rtol"] or \
-            worst > bounds["mu"]:
+    if l_r > bounds["loss_rtol"] or worst > bounds["mu"] or \
+            n_r > bounds["norm_rtol"]:
         return [what]
     return []
 
@@ -3358,6 +3410,7 @@ def phase10_sharded(drv, dev) -> dict:
     import dataclasses
     from repro_torch import configs
     from repro_torch.data.synthetic import TokenStreamConfig, token_batch
+    from repro_torch.distributed import fsdp as FS
     from repro_torch.distributed import sharding as SH
     b, s = TRAIN_BATCH
     out, failed = {}, []
@@ -3368,30 +3421,42 @@ def phase10_sharded(drv, dev) -> dict:
         batch = token_batch(TokenStreamConfig(cfg.vocab_size, s, b), 0, dev)
         tc = train_config(warmup=1)
         shapes = [sh for m, sh in TRAIN_MESHES if m == mode]
+        # the float meshes whose step splits a block over 'model': their
+        # grad_norm bound at bfloat16, and a second run at float32 (the
+        # comment above TRAIN_MESHES)
+        tp32 = [sh for sh in shapes if mode == "float"
+                and FS.split_blocks(cfg, sh[1])]
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
         # the references first, their mu on the host: a second state does
         # not fit beside a sharded one
         refs = {1: unsharded_step(cfg, tc, dev, batch)}
         if (4, 1) in shapes:
             refs[4] = unsharded_step(
                 cfg, dataclasses.replace(tc, microbatches=4), dev, batch)
+        if tp32:
+            refs["float32"] = unsharded_step(cfg32, tc, dev, batch)
         for n, r in refs.items():
-            log(f"train sharded {mode}: the unsharded step, microbatches="
-                f"{n}, loss {r['loss']:.8g} grad_norm {r['grad_norm']:.8g}, "
+            log(f"train sharded {mode}: the unsharded step, "
+                + (f"microbatches={n}" if n != "float32"
+                   else "float32 activations")
+                + f", loss {r['loss']:.8g} grad_norm {r['grad_norm']:.8g}, "
                 f"{r['ms']:.6g} ms")
         for shape in shapes:
             what = f"sharded {mode} {shape}"
 
             def check(got, state, what=what, shape=shape):
                 mu = state["opt"]["mu"]
+                bounds = dict(micro, norm_rtol=TP_BF16_NORM_RTOL) \
+                    if shape in tp32 else micro
                 bad = hold_to(f"{what} against the unsharded step", got,
-                              refs[1], micro, dev, mu)
+                              refs[1], bounds, dev, mu)
                 if shape == (4, 1):
                     bad += hold_to(f"{what} against microbatches=4", got,
                                    refs[4], SAME_ROWS, dev, mu)
                 return bad
 
             got, bad, state = sharded_run(what, cfg, tc, shape, dev, batch,
-                                          check)
+                                          check, (mode, shape))
             failed += bad
             out[what] = got
             if mode == "binary" and shape == (2, 2):
@@ -3404,6 +3469,21 @@ def phase10_sharded(drv, dev) -> dict:
             else:
                 del state
             free_card()
+            if shape in tp32:
+                what32 = f"{what} float32"
+
+                def check32(got, state, what=what32):
+                    return hold_to(f"{what} against the unsharded step",
+                                   got, refs["float32"],
+                                   {**MICRO_TOL, "mu": MICRO_MU["float32"]},
+                                   dev, state["opt"]["mu"])
+
+                got, bad, state = sharded_run(what32, cfg32, tc, shape, dev,
+                                              batch, check32)
+                failed += bad
+                out[what32] = got
+                del state
+                free_card()
         del refs
     dryrun_sizes()
     if failed:
@@ -3817,6 +3897,45 @@ def phase11_analysis(drv, dev) -> dict:
     return {"cells": summary, "host_cost_us": cost}
 
 
+# ---------------------------------------------------------------------------
+# 12. the examples on the card
+# ---------------------------------------------------------------------------
+
+# (module, argv, launches): the reference's default flags; the launches
+# of one run on the card (the STE training runs plain tensor ops, the
+# binary-weight LM the unpack route)
+EXAMPLES = (
+    ("quickstart", [], {"bitpack": 2, "xnor_gemm": 1}),
+    ("bitplane_first_layer", [],
+     {"bitpack": 1, "xnor_gemm": 1, "bitplane_conv": 1}),
+    ("train_binary_mlp", [],
+     {"bitpack": 1, "xnor_gemm": 2, "bn_sign_pack": 1, "dense_stack": 1}),
+    ("serve_binary_lm", [], {}))
+
+
+def phase12_examples(drv) -> dict:
+    """Phase 12: each example's ``main`` on the card through
+    ``Driver.run`` (its launches checked and counted), its output logged; every one
+    must return 0."""
+    import importlib
+    import io
+    out = {}
+    for name, argv, expect in EXAMPLES:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = drv.run(f"example {name}", lambda: mod.main(argv), expect)
+        out[name] = time.perf_counter() - t0
+        for line in buf.getvalue().splitlines():
+            log(f"example {name}: {line}")
+        if rc != 0:
+            raise AssertionError(f"example {name} returned {rc}")
+        log(f"example {name}: returned 0 in {out[name]:.2f} s, launches "
+            f"{expect or 'none'}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4068,8 +4187,8 @@ def main() -> int:
     log(f"train: {time.perf_counter() - t0:.1f} s; launches in all, phases "
         f"4-9 {launches}")
 
-    # 10. sharded training: starcoder2-3b on (2, 2) and (4, 1) meshes of
-    # the one card, its deploy
+    # 10. sharded training: starcoder2-3b on (2, 2), (4, 1) and (1, 4)
+    # meshes of the one card, tensor-parallel over 'model', its deploy
     free_card()
     t0 = time.perf_counter()
     phase10_sharded(drv, dev)
@@ -4081,6 +4200,10 @@ def main() -> int:
     free_card()
     phase11_analysis(drv, dev)
     log(f"analysis: launches in all, phases 4-11 {launches}")
+
+    # 12. the examples
+    phase12_examples(drv)
+    log(f"examples: launches in all, phases 4-12 {launches}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     kernels = []

@@ -16,18 +16,23 @@ non-zero.
 
     python3 chip_train_profile.py --sharded
 
-The float step over a mesh of the one card instead (``trainer.
+The step over a mesh of the one card instead (``trainer.
 make_train_step(..., mesh=)``, the cells of ``chip_smoke.py``'s phase
-10): unsharded, unsharded with ``microbatches=4``, (2, 2) and (4, 1),
-each from a fresh state.  A warm step is split at the trainer's marks
-(device time by CUDA events, and the host's time between the same
-marks, where it launches and does not wait); the next step runs under
-the profiler, which adds, beside the above, the device time spent inside
-the step's weight gathers, the gradient slices' reduces, autograd's
-adds into the preset gradient buffers and the AdamW leaf updates.
+10): float unsharded, unsharded with ``microbatches=4``, (2, 2), (4, 1)
+and (1, 4); binary unsharded and (2, 2); each from a fresh state.  A
+warm step is split at the trainer's marks (device time by CUDA events,
+and the host's time between the same marks, where it launches and does
+not wait); the next step runs under the profiler, which adds, beside the
+above, the device time spent inside the step's weight gathers, the
+gradient slices' reduces, the tensor-parallel blocks' collectives (the
+partial outputs' sums, the partial input gradients' sums, the activation
+gathers), autograd's adds into the preset gradient buffers and the AdamW
+leaf updates.  A range whose function the checkout lacks is left out,
+so the script profiles an older checkout's step too (copy it there).
 """
 from __future__ import annotations
 
+import inspect
 import os
 import sys
 import time
@@ -104,11 +109,17 @@ def profile_step(mode: str, dev) -> None:
     torch.cuda.empty_cache()
 
 
-# (mesh or None for the unsharded step, microbatches)
-SHARDED_CELLS = ((None, 1), (None, 4), ((2, 2), 1), ((4, 1), 1))
+# (mode, mesh or None for the unsharded step, microbatches)
+SHARDED_CELLS = (("float", None, 1), ("float", None, 4),
+                 ("float", (2, 2), 1), ("float", (4, 1), 1),
+                 ("float", (1, 4), 1), ("binary", None, 1),
+                 ("binary", (2, 2), 1))
 # Ranges the profiler reads device time in: name -> (module, attribute).
 RANGES = {"gathers": ("fsdp", "_Site.assemble"),
           "reduces": ("fsdp", "_Site.scatter"),
+          "TP partial sums": ("fsdp", "_Reduce.forward"),
+          "TP input-gradient sums": ("fsdp", "_Fan.backward"),
+          "TP activation gathers": ("fsdp", "_Cat.forward"),
           "AdamW leaf updates": ("adamw", "update_leaf")}
 
 
@@ -154,7 +165,7 @@ def _device_ms(e) -> float:
     return us / 1e3
 
 
-def profile_sharded(mesh_shape, micro: int, dev) -> None:
+def profile_sharded(mode: str, mesh_shape, micro: int, dev) -> None:
     import gc
     import torch
     from torch.autograd import DeviceType
@@ -166,16 +177,22 @@ def profile_sharded(mesh_shape, micro: int, dev) -> None:
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.optim import adamw as OPT
     from repro_torch.train import trainer as TR
-    what = (f"float {mesh_shape or 'unsharded'} microbatches={micro}")
+    what = (f"{mode} {mesh_shape or 'unsharded'} microbatches={micro}")
     mods = {"fsdp": FS, "adamw": OPT}
     saved = []
     for name, (mod, attr) in RANGES.items():
         owner, _, fn = attr.rpartition(".")
-        obj = getattr(mods[mod], owner) if owner else mods[mod]
-        saved.append((obj, fn, getattr(obj, fn)))
-        setattr(obj, fn, _ranged(getattr(obj, fn), name))
+        obj = getattr(mods[mod], owner, None) if owner else mods[mod]
+        if obj is None:
+            continue
+        # a staticmethod (an autograd function's) stays one
+        raw = inspect.getattr_static(obj, fn)
+        saved.append((obj, fn, raw))
+        run = _ranged(getattr(obj, fn), name)
+        setattr(obj, fn, staticmethod(run)
+                if isinstance(raw, staticmethod) else run)
     try:
-        cfg = configs.get_config("starcoder2-3b", quant="float")
+        cfg = configs.get_config("starcoder2-3b", quant=mode)
         tc = TR.TrainConfig(microbatches=micro, warmup=1)
         state = TR.init_train_state(
             torch.Generator(device=dev).manual_seed(0), cfg, tc, device=dev)
@@ -275,8 +292,8 @@ def main() -> int:
           f"{torch.__version__}; nvidia-smi: {smi}", flush=True)
     dev = torch.device("cuda", 0)
     if "--sharded" in sys.argv[1:]:
-        for mesh, micro in SHARDED_CELLS:
-            profile_sharded(mesh, micro, dev)
+        for mode, mesh, micro in SHARDED_CELLS:
+            profile_sharded(mode, mesh, micro, dev)
         return 0
     for mode in ("float", "binary"):
         profile_step(mode, dev)

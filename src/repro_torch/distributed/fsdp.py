@@ -4,18 +4,31 @@ collectives GSPMD writes for the reference's sharded step
 
 The step (``train/trainer.py``) works on a state placed by
 ``sharding.param_specs`` (:class:`~repro_torch.distributed.sharding.
-Placed` leaves), FSDP style:
+Placed` leaves): FSDP over the data axes, tensor parallelism over
+``model``.
 
 * Each data slice of the batch (``sharding.data_positions``) runs its
-  forward and backward once, at its first position, with every weight
-  whole.  A leaf split over the mesh is *gathered* there from its copies:
-  the leaves of a layer group as the group runs (a
-  ``common.Deferred`` that ``common.remat`` makes, and makes again in
-  the backward's recompute), every other leaf
-  once a microbatch.  There is no tensor-parallel compute over
-  ``model``: its positions hold slices, the data slice's first position
-  computes.
-* The gathered weight's gradient is *reduced* back to the copies: each
+  forward and backward once.  Outside the tensor-parallel blocks it runs
+  at its first position, each weight whole: a leaf split over the mesh
+  is *gathered* there from its copies, the leaves of a layer group as
+  the group runs (a ``common.Deferred`` that ``common.remat`` makes, and
+  makes again in the backward's recompute), every other leaf once a
+  microbatch.
+* A layer's block runs tensor-parallel over the data slice's |model|
+  positions where its split falls on whole units (:func:`split_blocks`:
+  attention when |model| divides the query and the KV heads, the dense
+  FFN its d_ff, MoE its experts, RG-LRU its width; the embedding, the
+  head and Mamba-2 never).  Each position computes with its own slice of
+  the block's leaves split over ``model``, gathered over the data axes
+  only, never over ``model`` (:class:`_Block`, a ``common.Deferred``
+  made again in the recompute, which runs whole); every other leaf of
+  the block is gathered once, as above.  The block functions run each
+  position on its slice and combine them through
+  :class:`~repro_torch.models.common.Parallel`'s collectives: the
+  column-parallel input fanned out to the positions, the row-parallel
+  partial outputs summed in float32, an activation split over ``model``
+  gathered (RG-LRU's conv output).
+* A gathered weight's gradient is *reduced* back to the copies: each
   copy gets its slice, added by autograd into its own accumulator
   (the copy's preset ``.grad``), so a copy that several positions share
   is updated once.
@@ -23,20 +36,40 @@ Placed` leaves), FSDP style:
   leaves: one partial sum per distinct slice, added on the mesh's first
   device, each element counted once.
 
-Counting, on ``telemetry.default()``'s registry:
+Counting, on ``telemetry.default()``'s registry.  The weights
+(:data:`WEIGHT_COUNTERS`):
 
-* ``sharding.gathers`` +1 per gather of a leaf held in more than one
-  slice, ``sharding.gathered_bytes`` + the bytes of the slices that the
-  data slice's first position does not hold;
+* ``sharding.gathers`` +1 per gather of a leaf (or of one position's
+  slice of it) held in more than one slice, ``sharding.gathered_bytes``
+  + the bytes of the slices that the computing position does not hold;
 * ``sharding.reduces`` +1 per copy that position does not hold, per
   backward through a gather, ``sharding.reduced_bytes`` + that copy's
   slice's bytes;
 * ``sharding.partial_sums`` + (slices - 1) per leaf per whole-leaf sum
   (float32 scalars).
 
-:func:`step_traffic` reckons all five from shapes, specs and the mesh
-alone; the tests and ``chip_smoke.py`` hold the counts to it, and the dry
-run (``launch/dryrun.py``) reports it for meshes no card holds.
+The activations of the tensor-parallel blocks (:data:`TP_COUNTERS`),
+each +1 a collective and + the bytes of the |model| - 1 positions'
+tensors that the data slice's first position does not hold:
+
+* ``sharding.tp_reduces`` / ``sharding.tp_reduced_bytes``: the forward's
+  sums over ``model`` of row-parallel partial outputs (float32), and in
+  the binary modes of each row-parallel linear's partial sums of |w|
+  (its alpha, float64), in the forward and again in the recompute;
+* ``sharding.tp_grad_reduces`` / ``sharding.tp_grad_reduced_bytes``: the
+  backward's sums over ``model`` of the float32 partial gradients of a
+  column-parallel block's inputs (the residual stream's normed input,
+  whisper's encoder output, MoE's routing weights, RG-LRU's gathered
+  conv output), rounded once after the sum;
+* ``sharding.tp_gathers`` / ``sharding.tp_gathered_bytes``: activations
+  gathered over ``model`` (RG-LRU's conv output, float32), in the
+  forward and again in the recompute.
+
+:func:`step_traffic` reckons all of them from shapes, specs, the mesh,
+the config and the batch's shape alone (each block module's
+``parallel_traffic`` for the activations); the tests and ``chip_smoke.py``
+hold the counts to it, and the dry run (``launch/dryrun.py``) reports it
+for meshes no card holds.
 """
 from __future__ import annotations
 
@@ -46,20 +79,75 @@ import torch
 
 from repro_torch import telemetry as _telemetry
 from repro_torch.distributed import sharding as SH
-from repro_torch.models.common import Deferred, grad_views
+from repro_torch.models import attention as A
+from repro_torch.models import ffn as FF
+from repro_torch.models import moe as MOE
+from repro_torch.models import rglru as R
+from repro_torch.models.common import Deferred, Parallel, grad_views
 from repro_torch.tree import leaves_with_path, map_with_path
 
 # Paths of the stacked layer groups: gathered per group, twice a
 # microbatch (the forward and the backward's recompute).
 LAYERED = ("stack/", "encdec/enc/", "encdec/dec/")
 _STACKS = re.compile(r"^(stack/\d+|encdec/(enc|dec))$")
-COUNTERS = ("sharding.gathers", "sharding.gathered_bytes",
-            "sharding.reduces", "sharding.reduced_bytes",
-            "sharding.partial_sums")
+# A layered leaf's block: the key under its layer
+_BLOCK = re.compile(r"^(?:stack/\d+/\d+|encdec/(?:enc|dec))/([^/]+)/")
+WEIGHT_COUNTERS = ("sharding.gathers", "sharding.gathered_bytes",
+                   "sharding.reduces", "sharding.reduced_bytes",
+                   "sharding.partial_sums")
+TP_COUNTERS = ("sharding.tp_reduces", "sharding.tp_reduced_bytes",
+               "sharding.tp_grad_reduces", "sharding.tp_grad_reduced_bytes",
+               "sharding.tp_gathers", "sharding.tp_gathered_bytes")
+COUNTERS = WEIGHT_COUNTERS + TP_COUNTERS
+# A traffic entry's kind (``common.Parallel``): its counters, and its
+# passes a step (the forward's collectives run again in the recompute)
+_TP_KINDS = {"reduce": ("sharding.tp_reduces", "sharding.tp_reduced_bytes",
+                        2),
+             "gather": ("sharding.tp_gathers", "sharding.tp_gathered_bytes",
+                        2),
+             "grad": ("sharding.tp_grad_reduces",
+                      "sharding.tp_grad_reduced_bytes", 1)}
 
 
 def layered(path: str) -> bool:
     return path.startswith(LAYERED)
+
+
+def block_of(path: str) -> str | None:
+    """The block key of a layered leaf's path (``'attn'``, ``'mlp'``,
+    ``'ln1'``...), None for any other leaf."""
+    hit = _BLOCK.match(path)
+    return hit.group(1) if hit else None
+
+
+def split_blocks(cfg, m: int) -> frozenset:
+    """The blocks that run tensor-parallel over ``m`` model positions:
+    those whose split falls on whole units.  Attention (self and cross)
+    where ``m`` divides the query and the KV heads, so GQA groups stay
+    whole; the FFN (``'mlp'``) where it divides ``d_ff``, or for MoE the
+    experts (and the shared experts' width); RG-LRU (``'rec'``) where it
+    divides the width.  Mamba-2 (its fused in-projection interleaves five
+    blocks on one axis), the embedding and the head never."""
+    if m <= 1:
+        return frozenset()
+    out = set()
+    if A.heads_split(cfg, m):
+        out |= {"attn", "xattn"}
+    if cfg.moe is not None:
+        if MOE.experts_split(cfg, m):
+            out.add("mlp")
+    elif cfg.d_ff and cfg.d_ff % m == 0:
+        out.add("mlp")
+    if cfg.rglru is not None and R.width_split(cfg, m):
+        out.add("rec")
+    return frozenset(out)
+
+
+def _names(spec) -> set:
+    out = set()
+    for ax in spec:
+        out |= set(ax) if isinstance(ax, (tuple, list)) else {ax}
+    return out
 
 
 def _count(name: str, n: int) -> None:
@@ -78,11 +166,24 @@ def _numel(idx: tuple) -> int:
     return n
 
 
+def _region(idxs: list) -> tuple:
+    """The smallest box holding every slice of ``idxs``."""
+    return tuple(slice(min(ix[k].start for ix in idxs),
+                       max(ix[k].stop for ix in idxs))
+                 for k in range(len(idxs[0])))
+
+
+def _within(idx: tuple, region: tuple) -> tuple:
+    return tuple(slice(sl.start - r.start, sl.stop - r.start)
+                 for sl, r in zip(idx, region))
+
+
 class _Site:
-    """One leaf (or one group of a stacked leaf) for one data slice: the
-    whole shape, each copy's slice of it, the copy the data slice's first
-    position holds, and the copy each distinct slice is read from (one on
-    the computing device where there is one)."""
+    """One region of a leaf (the whole leaf, or one position's slice of a
+    tensor-parallel leaf; one group of a stacked leaf) for one computing
+    position: the region's shape, the slice of it each copy used holds,
+    the copy that position holds, and the copy each distinct slice is read
+    from (one on the computing device where there is one)."""
 
     def __init__(self, shape, dtype, device, idxs, devices, own):
         self.shape, self.dtype, self.device = shape, dtype, device
@@ -119,8 +220,8 @@ class _Site:
 
 
 class _Gather(torch.autograd.Function):
-    """Forward: the whole tensor from its copies; backward: each copy's
-    slice of the gradient (the reduce)."""
+    """Forward: the region from its copies; backward: each copy's slice
+    of the gradient (the reduce)."""
 
     @staticmethod
     def forward(ctx, site, *parts):
@@ -139,11 +240,14 @@ class _Leaf:
     leaf: views of the copy and of its accumulator), by
     ``common.grad_views``."""
 
-    def __init__(self, path: str, placed: SH.Placed, dtype, firsts):
+    def __init__(self, path: str, placed: SH.Placed, dtype, ranks):
         self.path, self.placed = path, placed
         copies = placed.copies()
         self.idxs = [idx for _, idx, _ in copies]
         self.holders = [pos for _, _, pos in copies]
+        self.copy_of = {p: i for i, pos in enumerate(self.holders)
+                        for p in pos}
+        self.split = "model" in _names(placed.spec)
         self.groups = placed.shape[0] if layered(path) else None
         if self.groups is not None and any(
                 idx[0] != slice(0, self.groups) for idx in self.idxs):
@@ -157,37 +261,51 @@ class _Leaf:
         self.views = views if self.groups is None else \
             [list(vs) for vs in zip(*views)]
         self.sites = {}
-        self.firsts = firsts
+        self.ranks = ranks
 
     def views_flat(self) -> list:
         if self.groups is None:
             return list(self.views)
         return [v for vs in self.views for v in vs]
 
-    def _site(self, d: int, grouped: bool) -> _Site:
-        if (d, grouped) not in self.sites:
+    def _site(self, d: int, grouped: bool, j: int | None):
+        """(the site, the copies it reads) of data slice ``d``: the whole
+        leaf at its first position, or with ``j`` the region of its
+        ``j``-th model position's slice over the data axes."""
+        if (d, grouped, j) not in self.sites:
             mesh = self.placed.mesh
-            first = self.firsts[d]
-            own = next(i for i, pos in enumerate(self.holders)
-                       if first in pos)
-            shape = self.placed.shape[1:] if grouped else self.placed.shape
-            idxs = [idx[1:] if grouped else idx for idx in self.idxs]
-            devices = [mesh.devices[pos[0]] for pos in self.holders]
-            self.sites[d, grouped] = _Site(tuple(shape), self.dtype,
-                                           mesh.devices[first], idxs,
-                                           devices, own)
-        return self.sites[d, grouped]
+            at = self.ranks[d][0 if j is None else j]
+            if j is None:
+                used = list(range(len(self.idxs)))
+                region = tuple(slice(0, n) for n in self.placed.shape)
+            else:
+                column = [rank[j] for rank in self.ranks]
+                used = sorted({self.copy_of[p] for p in column})
+                region = _region([self.idxs[i] for i in used])
+            own = used.index(self.copy_of[at])
+            cut = 1 if grouped else 0
+            idxs = [_within(self.idxs[i], region)[cut:] for i in used]
+            shape = tuple(r.stop - r.start for r in region[cut:])
+            devices = [mesh.devices[self.holders[i][0]] for i in used]
+            self.sites[d, grouped, j] = (
+                _Site(shape, self.dtype, mesh.devices[at], idxs, devices,
+                      own), used)
+        return self.sites[d, grouped, j]
 
-    def gather(self, d: int, g: int | None = None) -> torch.Tensor:
+    def gather(self, d: int, g: int | None = None,
+               j: int | None = None) -> torch.Tensor:
         """The whole leaf (group ``g`` of a stacked one) for data slice
-        ``d``: the copy itself where the leaf has one, else gathered."""
+        ``d``, or with ``j`` its ``j``-th model position's slice, gathered
+        over the data axes only: the copy itself where one holds it all,
+        else gathered."""
         views = self.views if g is None else self.views[g]
-        if len(views) == 1:
-            return views[0]
-        site = self._site(d, g is not None)
+        site, used = self._site(d, g is not None, j)
+        parts = [views[i] for i in used]
+        if len(parts) == 1 and site.devices[0] == site.device:
+            return parts[0]
         if self.float:
-            return _Gather.apply(site, *views)
-        return site.assemble(views)
+            return _Gather.apply(site, *parts)
+        return site.assemble(parts)
 
     def distinct(self) -> list[int]:
         """One copy of each distinct slice, in position order."""
@@ -211,17 +329,141 @@ class _Layer(Deferred):
         return self.leaf.gather(self.d, self.g)
 
 
+class _Fan(torch.autograd.Function):
+    """Forward: ``x`` at every position's device, at least float32 (an
+    exact upcast; one copy a device, a view of it a position); backward:
+    the positions' partial gradients, float32 (the column-parallel
+    products keep them so: ``linear.apply_linear``'s ``column``), summed
+    on ``x``'s device and rounded once to ``x``'s dtype, as one whole
+    product's gradient is (counted)."""
+
+    @staticmethod
+    def forward(ctx, devices, x):
+        ctx.home, ctx.dtype = x.device, x.dtype
+        wide = torch.promote_types(x.dtype, torch.float32)
+        copies = {}
+        for dev in devices:
+            if dev not in copies:
+                copies[dev] = x.to(dev, wide)
+        return tuple(copies[dev].view_as(copies[dev]) for dev in devices)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        total = gs[0].to(ctx.home, copy=True)
+        for g in gs[1:]:
+            total.add_(g.to(ctx.home))
+        _count("sharding.tp_grad_reduces", 1)
+        _count("sharding.tp_grad_reduced_bytes",
+               (len(gs) - 1) * total.numel() * total.element_size())
+        return None, total.to(ctx.dtype)
+
+
+class _Reduce(torch.autograd.Function):
+    """Forward: the sum of the positions' tensors on ``home``, in float32
+    (float64 stays float64; counted); backward: the gradient at every
+    position."""
+
+    @staticmethod
+    def forward(ctx, home, *parts):
+        ctx.devices = [p.device for p in parts]
+        dtype = torch.promote_types(parts[0].dtype, torch.float32)
+        out = parts[0].to(home, dtype, copy=True)
+        for p in parts[1:]:
+            out.add_(p.to(home, dtype))
+        _count("sharding.tp_reduces", 1)
+        _count("sharding.tp_reduced_bytes",
+               (len(parts) - 1) * out.numel() * out.element_size())
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, *(g.to(dev) for dev in ctx.devices))
+
+
+class _Cat(torch.autograd.Function):
+    """Forward: the positions' slices concatenated on ``home`` along
+    ``dim`` (counted); backward: each position's slice of the
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, home, dim, *parts):
+        ctx.devices = [p.device for p in parts]
+        ctx.dim = dim
+        ctx.sizes = [p.shape[dim] for p in parts]
+        _count("sharding.tp_gathers", 1)
+        _count("sharding.tp_gathered_bytes",
+               sum(p.numel() * p.element_size() for p in parts[1:]))
+        return torch.cat([p.to(home) for p in parts], dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, None, *(s.to(dev) for s, dev in zip(
+            torch.split(g, ctx.sizes, ctx.dim), ctx.devices)))
+
+
+class _Positions(Parallel):
+    """A made tensor-parallel block (``common.Parallel``): the positions'
+    trees, devices and the home device, with the counted collectives."""
+
+    def __init__(self, trees: list, devices: list, home):
+        self.trees, self.devices, self.home = trees, devices, home
+
+    def sub(self, key: str) -> "_Positions":
+        return _Positions([t[key] for t in self.trees], self.devices,
+                          self.home)
+
+    def fan(self, x: torch.Tensor) -> list:
+        return list(_Fan.apply(self.devices, x))
+
+    def reduce(self, parts: list) -> torch.Tensor:
+        return _Reduce.apply(self.home, *parts)
+
+    def gather(self, parts: list, dim: int = -1) -> torch.Tensor:
+        return _Cat.apply(self.home, dim % parts[0].ndim, *parts)
+
+
+class _Block(Deferred):
+    """One group's tensor-parallel block for data slice ``d``: made (when
+    the group runs, again in its recompute) into a :class:`_Positions`
+    whose tree at position ``j`` holds the ``j``-th model slice of each
+    leaf split over ``model`` (gathered over the data axes only) and every
+    other leaf whole, one tensor for all positions."""
+    requires_grad = True
+    full_recompute = True
+
+    def __init__(self, sp: "ShardedParams", d: int, g: int, node, path: str):
+        self.sp, self.d, self.g, self.node, self.path = sp, d, g, node, path
+
+    def value(self) -> _Positions:
+        sp, d, g = self.sp, self.d, self.g
+        whole = {p: sp.leaves[p].gather(d, g)
+                 for p, _ in leaves_with_path(self.node, self.path)
+                 if not sp.leaves[p].split}
+        trees = [map_with_path(
+            lambda p, _, j=j: sp.leaves[p].gather(d, g, j)
+            if sp.leaves[p].split else whole[p], self.node, self.path)
+            for j in range(sp.m)]
+        devices = [sp.mesh.devices[p] for p in sp.ranks[d]]
+        return _Positions(trees, devices, devices[0])
+
+
 class ShardedParams:
     """The placed params of a train state, prepared for one step: every
     leaf's copies as autograd leaves with zeroed gradient accumulators
     (``grads``), and, per data slice, the params tree its forward reads
-    (:meth:`tree_for`)."""
+    (:meth:`tree_for`), its tensor-parallel blocks (``cfg``'s
+    :func:`split_blocks`) as :class:`_Block` leaves."""
 
-    def __init__(self, params, mesh, dtype=None):
+    def __init__(self, params, mesh, cfg, dtype=None):
         self.mesh = mesh
-        self.firsts = SH.data_positions(mesh)[1]
+        index, self.firsts = SH.data_positions(mesh)
+        # Each data slice's positions, in model order
+        self.ranks = [[p for p in range(mesh.size) if index[p] == d]
+                      for d in range(len(self.firsts))]
+        self.m = len(self.ranks[0])
+        self.split = split_blocks(cfg, self.m)
         self.params = params
-        self.leaves = {p: _Leaf(p, pl, dtype, self.firsts)
+        self.leaves = {p: _Leaf(p, pl, dtype, self.ranks)
                        for p, pl in leaves_with_path(params)}
 
     @property
@@ -232,6 +474,20 @@ class ShardedParams:
         return [v for leaf in self.leaves.values() for v in leaf.views_flat()
                 if v.requires_grad]
 
+    def _group(self, node, path: str, d: int, g: int):
+        """Group ``g`` of a stacked node: its layers' trees of
+        :class:`_Layer` leaves, each tensor-parallel block one
+        :class:`_Block`."""
+        def layer(tree, at):
+            return {k: _Block(self, d, g, v, f"{at}/{k}")
+                    if k in self.split else map_with_path(
+                        lambda p, _: _Layer(self.leaves[p], d, g), v,
+                        f"{at}/{k}")
+                    for k, v in tree.items()}
+        if isinstance(node, dict):
+            return layer(node, path)
+        return tuple(layer(t, f"{path}/{i}") for i, t in enumerate(node))
+
     def tree_for(self, d: int):
         """The params tree data slice ``d`` runs on: stacked groups as
         lists of per-group trees of :class:`~repro_torch.models.common.
@@ -239,9 +495,8 @@ class ShardedParams:
         def walk(path, node):
             if _STACKS.match(path):
                 first = next(leaves_with_path(node, path))[0]
-                return [map_with_path(
-                    lambda p, _, g=g: _Layer(self.leaves[p], d, g), node,
-                    path) for g in range(self.leaves[first].groups)]
+                return [self._group(node, path, d, g)
+                        for g in range(self.leaves[first].groups)]
             if isinstance(node, dict):
                 return {k: walk(f"{path}/{k}" if path else k, v)
                         for k, v in node.items()}
@@ -270,16 +525,66 @@ class ShardedParams:
 # The reckoning from shapes
 # ---------------------------------------------------------------------------
 
-def step_traffic(params, specs: dict, mesh, *, microbatches: int = 1,
-                 compress: bool = False, grads_bf16: bool = False) -> dict:
+def _activation_traffic(params, cfg, split, m, batch, pieces) -> dict:
+    """The :data:`TP_COUNTERS` of one step: each layered block of
+    ``params`` that runs tensor-parallel, one call a layer group, sums its
+    module's traffic entries (``parallel_traffic``) for each of the
+    ``pieces`` data-slice microbatches of ``rows / pieces`` rows."""
+    out = dict.fromkeys(TP_COUNTERS, 0)
+    blocks = {}                       # block path: (block, groups, leaves)
+    for path, leaf in leaves_with_path(params):
+        hit = _BLOCK.match(path)
+        if hit and hit.group(1) in split:
+            blocks.setdefault(hit.group(0), (hit.group(1), leaf.shape[0],
+                                             set()))[2].add(path[hit.end():])
+    if not blocks:
+        return out
+    rows, s = tuple(batch["labels"].shape)
+    r = rows // pieces
+    dt = cfg.activation_dtype
+    if cfg.encoder_layers:
+        enc = batch["enc_embeds"]
+        enc_dt = torch.promote_types(enc.dtype, dt)
+        enc_tokens = r * enc.shape[1]
+    for path, (block, groups, leaves) in blocks.items():
+        tokens, x_dt = (enc_tokens, enc_dt) if path.startswith(
+            "encdec/enc/") else (r * s, dt)
+        if block == "attn":
+            entries = A.parallel_traffic(cfg, tokens, x_dt)
+        elif block == "xattn":
+            entries = A.parallel_traffic(cfg, tokens, x_dt, enc_tokens,
+                                         enc_dt)
+        elif block == "rec":
+            entries = R.parallel_traffic(cfg, tokens, x_dt, m)
+        elif any(p.startswith("router/") for p in leaves):
+            entries = MOE.parallel_traffic(cfg, tokens, x_dt)
+        else:
+            entries = FF.parallel_traffic(cfg, tokens, x_dt)
+        for kind, numel, item in entries:
+            count, nbytes, passes = _TP_KINDS[kind]
+            n = passes * pieces * groups
+            out[count] += n
+            out[nbytes] += n * (m - 1) * numel * item
+    return out
+
+
+def step_traffic(params, specs: dict, mesh, *, cfg, batch,
+                 microbatches: int = 1, compress: bool = False,
+                 grads_bf16: bool = False) -> dict:
     """What one sharded step gathers, reduces and sums, from the params'
     shapes and dtypes (tensors of any device, meta included, or
-    ``Placed``), their ``{path: spec}`` and the mesh: the counts the step
-    adds to :data:`COUNTERS`, by this module's counting rule."""
-    firsts = SH.data_positions(mesh)[1]
+    ``Placed``), their ``{path: spec}``, the mesh, the config (the
+    per-block rule, :func:`split_blocks`, and the blocks' widths) and the
+    batch (tensors of any device: its rows and lengths): the counts the
+    step adds to :data:`COUNTERS`, by this module's counting rule."""
+    index, firsts = SH.data_positions(mesh)
     n_data = len(firsts)
-    pieces = n_data * microbatches
+    ranks = [[p for p in range(mesh.size) if index[p] == d]
+             for d in range(n_data)]
+    m = len(ranks[0])
+    split = split_blocks(cfg, m)
     out = dict.fromkeys(COUNTERS, 0)
+    pieces = n_data * microbatches
     for path, leaf in leaves_with_path(params):
         shape = tuple(leaf.shape)
         dtype = leaf.dtype
@@ -294,13 +599,36 @@ def step_traffic(params, specs: dict, mesh, *, microbatches: int = 1,
         if not dtype.is_floating_point:
             raise ValueError(f"{path}: a params leaf of {dtype}")
         if n_slices > 1:
+            out["sharding.partial_sums"] += (n_slices - 1) * (
+                2 if compress else 1)
+        if block_of(path) in split and "model" in _names(specs[path]):
+            # each position gathers its model slice over the data axes
+            for j in range(m):
+                column = [rank[j] for rank in ranks]
+                used = {copy_of[p]: idxs[p] for p in column}
+                region = _numel(_region(list(used.values())))
+                n_col = len({_key(idx) for idx in used.values()})
+                for d in range(n_data):
+                    at = ranks[d][j]
+                    if n_col > 1:
+                        out["sharding.gathers"] += \
+                            microbatches * groups * passes
+                        out["sharding.gathered_bytes"] += \
+                            microbatches * passes * (
+                                region - _numel(idxs[at])) * item
+                    others = [_numel(ix) for c, ix in used.items()
+                              if c != copy_of[at]]
+                    out["sharding.reduces"] += \
+                        microbatches * groups * len(others)
+                    out["sharding.reduced_bytes"] += \
+                        microbatches * sum(others) * item
+            continue
+        if n_slices > 1:
             out["sharding.gathers"] += pieces * groups * passes
             for d in range(n_data):
                 own = _numel(idxs[firsts[d]])
                 out["sharding.gathered_bytes"] += \
                     microbatches * passes * (numel - own) * item
-            out["sharding.partial_sums"] += (n_slices - 1) * (
-                2 if compress else 1)
         if n_copies > 1:
             slice_numel = {c: _numel(idxs[i]) for i, c in enumerate(copy_of)}
             for d in range(n_data):
@@ -309,4 +637,5 @@ def step_traffic(params, specs: dict, mesh, *, microbatches: int = 1,
                 out["sharding.reduces"] += microbatches * groups * len(others)
                 out["sharding.reduced_bytes"] += \
                     microbatches * sum(others) * item
+    out.update(_activation_traffic(params, cfg, split, m, batch, pieces))
     return out

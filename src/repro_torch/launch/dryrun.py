@@ -18,9 +18,13 @@ per position and from the specs alone:
   (``sharding.HBM_BYTES``, one H100's 80 GB).  Activations are not
   counted;
 * ``step_traffic`` (train): what the port's sharded step
-  (``train/trainer.py``) gathers, reduces and sums on this mesh, by the
-  counting rule of ``distributed/fsdp.py`` applied to shapes
-  (``fsdp.step_traffic``), summed over the data slices;
+  (``train/trainer.py``: FSDP over the data axes, tensor parallelism over
+  ``model`` wherever ``fsdp.split_blocks`` lets a block split on whole
+  units) moves on this mesh, by the counting rule of
+  ``distributed/fsdp.py`` applied to shapes (``fsdp.step_traffic``),
+  summed over the data slices: the weights' gathers, reduces and partial
+  sums, and the tensor-parallel blocks' activation reduces, input-gradient
+  reduces and gathers (``tp_*``);
 * ``param_counts`` and ``model_flops``: 6 x active params x tokens for
   train, 2 x for prefill and decode (one new token a sequence); the
   attention's own FLOPs are left out.
@@ -116,7 +120,8 @@ def _train_cell(cfg, shape, mesh) -> dict:
            "opt_state": 2 * p_bytes + 4,          # mu, nu, the counter
            "grads": p_bytes,
            "batch": _most(batch, SH.batch_specs(batch, mesh), mesh)}
-    traffic = FS.step_traffic(params, pspecs, mesh, microbatches=mb)
+    traffic = FS.step_traffic(params, pspecs, mesh, microbatches=mb,
+                              cfg=cfg, batch=batch)
     return {"fsdp": True, "microbatches": mb, "bytes_per_position": out,
             "step_traffic": {k.split(".", 1)[1]: v
                              for k, v in traffic.items()}}

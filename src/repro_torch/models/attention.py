@@ -11,6 +11,8 @@ is not on this path.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.models import common as C
@@ -41,14 +43,16 @@ def init_attention(gen: torch.Generator, cfg, *, cross: bool = False
 # ---------------------------------------------------------------------------
 
 def _project_qkv(params: dict, cfg, x: torch.Tensor,
-                 kv_src: torch.Tensor | None = None):
+                 kv_src: torch.Tensor | None = None, column: bool = False):
     dt = cfg.activation_dtype
     kv_src = x if kv_src is None else kv_src
     b, sq = x.shape[:2]
     skv = kv_src.shape[1]
-    q = LN.apply_linear(params["wq"], x, cfg.quant, dtype=dt)
-    k = LN.apply_linear(params["wk"], kv_src, cfg.quant, dtype=dt)
-    v = LN.apply_linear(params["wv"], kv_src, cfg.quant, dtype=dt)
+    q = LN.apply_linear(params["wq"], x, cfg.quant, dtype=dt, column=column)
+    k = LN.apply_linear(params["wk"], kv_src, cfg.quant, dtype=dt,
+                        column=column)
+    v = LN.apply_linear(params["wv"], kv_src, cfg.quant, dtype=dt,
+                        column=column)
     q = q.reshape(b, sq, cfg.num_heads, cfg.head_dim)
     k = k.reshape(b, skv, cfg.num_kv_heads, cfg.head_dim)
     v = v.reshape(b, skv, cfg.num_kv_heads, cfg.head_dim)
@@ -146,14 +150,13 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # full-sequence forward
 # ---------------------------------------------------------------------------
 
-def attention_forward(params: dict, cfg, x: torch.Tensor, *,
-                      positions: torch.Tensor, kind: str = "global",
-                      causal: bool = True,
-                      kv_src: torch.Tensor | None = None,
-                      return_kv: bool = False):
-    """x: (B, S, D) -> (B, S, D).  kind: 'global' | 'local'.  ``kv_src``
-    makes it cross-attention (no rope on cross)."""
-    q, k, v = _project_qkv(params, cfg, x, kv_src)
+def _attend(params: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
+            kind: str, causal: bool, kv_src: torch.Tensor | None,
+            column: bool = False):
+    """Projections, rope and attention: (out (B, S, H * hd) before the
+    output projection, k, v).  ``column``: a tensor-parallel position's
+    float32 input copies (``linear.apply_linear``)."""
+    q, k, v = _project_qkv(params, cfg, x, kv_src, column)
     is_cross = kv_src is not None
     if not is_cross:
         q = _rope(cfg, q, positions)
@@ -162,7 +165,60 @@ def attention_forward(params: dict, cfg, x: torch.Tensor, *,
     out = chunked_attention(q, k, v, causal=causal and not is_cross,
                             window=window, attn_softcap=cfg.attn_softcap)
     b, s = x.shape[:2]
-    y = LN.apply_linear(params["wo"], out.reshape(b, s, -1), cfg.quant,
+    return out.reshape(b, s, -1), k, v
+
+
+def heads_split(cfg, m: int) -> bool:
+    """Whether attention splits over ``m`` model positions on whole
+    units: ``m`` divides the query and the KV heads, so every GQA group
+    stays at one position."""
+    return cfg.num_heads % m == 0 and cfg.num_kv_heads % m == 0
+
+
+def parallel_traffic(cfg, tokens: int, dtype, kv_tokens: int | None = None,
+                     kv_dtype=None) -> list:
+    """The traffic entries (``common.Parallel``) of one tensor-parallel
+    call on ``tokens`` rows of ``dtype``: the input fanned out (for cross
+    attention the ``kv_tokens`` rows of ``kv_dtype`` too), the partial
+    outputs of ``wo`` summed."""
+    d = cfg.d_model
+    out = C.fan_traffic(tokens * d, dtype)
+    if kv_tokens is not None:
+        out += C.fan_traffic(kv_tokens * d, kv_dtype)
+    return out + LN.row_parallel_traffic(cfg.quant, tokens * d, d)
+
+
+def attention_forward(params, cfg, x: torch.Tensor, *,
+                      positions: torch.Tensor, kind: str = "global",
+                      causal: bool = True,
+                      kv_src: torch.Tensor | None = None,
+                      return_kv: bool = False):
+    """x: (B, S, D) -> (B, S, D).  kind: 'global' | 'local'.  ``kv_src``
+    makes it cross-attention (no rope on cross).
+
+    ``params`` may be a ``common.Parallel`` (tensor parallelism over
+    ``model``, :func:`heads_split`): position j runs its heads, its
+    columns of ``wq``/``wk``/``wv`` and its rows of ``wo``, as the body
+    of a config with ``num_heads / m`` and ``num_kv_heads / m`` heads
+    (scale, softcap, window and rope are per head); the partial outputs
+    are summed over the positions (``linear.apply_row_parallel``)."""
+    if isinstance(params, C.Parallel):
+        if return_kv:
+            raise ValueError("return_kv: the tensor-parallel attention is "
+                             "the train step's; prefill runs whole")
+        m = params.size
+        local = dataclasses.replace(cfg, num_heads=cfg.num_heads // m,
+                                    num_kv_heads=cfg.num_kv_heads // m)
+        xs = params.fan(x)
+        kvs = params.fan(kv_src) if kv_src is not None else [None] * m
+        outs = [_attend(t, local, xj, positions.to(xj.device), kind, causal,
+                        kvj, column=True)[0]
+                for t, xj, kvj in zip(params.trees, xs, kvs)]
+        return LN.apply_row_parallel(params, [t["wo"] for t in params.trees],
+                                     outs, cfg.quant,
+                                     dtype=cfg.activation_dtype)
+    out, k, v = _attend(params, cfg, x, positions, kind, causal, kv_src)
+    y = LN.apply_linear(params["wo"], out, cfg.quant,
                         dtype=cfg.activation_dtype)
     if return_kv:
         return y, (k, v)

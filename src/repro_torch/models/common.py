@@ -10,7 +10,7 @@ float32.
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.tree import leaves_with_path, tree_index, tree_map
 
@@ -240,11 +240,72 @@ class Deferred:
     layer runs (a weight held in slices, say, and gathered by
     :meth:`value`).  :func:`remat` makes the Deferred leaves of its
     call's arguments inside the call, so the backward's recompute makes
-    them again."""
+    them again.  ``full_recompute``: the recompute must run the whole
+    call, not stop once it has remade what the backward reads (a
+    :class:`Parallel` block counts the traffic of every pass)."""
     requires_grad = False
+    full_recompute = False
 
     def value(self) -> torch.Tensor:
         raise NotImplementedError
+
+
+class Parallel:
+    """A block's params split over the model positions of one data slice
+    (tensor parallelism; made by ``distributed/fsdp.py``).  ``trees[j]``
+    is position ``j``'s params tree: its slices of the leaves split over
+    ``model``, every other leaf whole and the same tensor at every
+    position; ``devices[j]`` its device; ``home`` the device of the data
+    slice's activations.  The block functions (``attention_forward``,
+    ``apply_ffn``, ``apply_moe``, ``rglru_block_forward``) take one in a
+    params dict's place, run each position on its slice and combine the
+    positions through the three collectives below, which count their
+    traffic.
+
+    Each block module reckons one call's collectives from shapes
+    (``parallel_traffic``): a list of (kind, elements, bytes an element)
+    entries, one a collective, ``elements`` one position's tensor, so the
+    positions other than the data slice's first move (|model| - 1) x
+    elements x bytes.  Kinds: ``'reduce'`` (the forward's sums,
+    :meth:`reduce`), ``'gather'`` (the forward's :meth:`gather`), and
+    ``'grad'`` (the backward's sum of a :meth:`fan`'s partial
+    gradients)."""
+    trees: list
+    devices: list
+    home: torch.device
+
+    @property
+    def size(self) -> int:
+        return len(self.trees)
+
+    def sub(self, key: str) -> "Parallel":
+        """The same positions over each tree's ``key`` subtree."""
+        raise NotImplementedError
+
+    def fan(self, x: torch.Tensor) -> list:
+        """``x`` (on ``home``) at every position: the input of a
+        column-parallel product; the backward sums the positions'
+        gradients."""
+        raise NotImplementedError
+
+    def reduce(self, parts: list) -> torch.Tensor:
+        """The sum over positions of ``parts`` (one a position) on
+        ``home``, in float32 (float64 parts in float64): row-parallel
+        partial products."""
+        raise NotImplementedError
+
+    def gather(self, parts: list, dim: int = -1) -> torch.Tensor:
+        """``parts`` (one a position) concatenated along ``dim`` on
+        ``home``: an activation split over ``model``."""
+        raise NotImplementedError
+
+
+def fan_traffic(numel: int, dtype) -> list:
+    """The traffic entry of one :meth:`Parallel.fan` of ``numel``
+    elements of ``dtype``: its backward's sum of the positions' partial
+    gradients, kept at least float32."""
+    wide = torch.promote_types(dtype, torch.float32)
+    return [("grad", numel, torch.empty((), dtype=wide).element_size())]
 
 
 def materialize(tree):
@@ -302,7 +363,9 @@ def remat(fn, on: bool):
     policy does.  Otherwise ``fn`` itself: a forward that nothing
     differentiates (serving) keeps nothing anyway.  The values do not
     change.  With ``on``, :class:`Deferred` leaves of the arguments are
-    made inside the call (:func:`materialize`), again in the recompute."""
+    made inside the call (:func:`materialize`), again in the recompute;
+    where one asks for ``full_recompute`` the recompute runs the whole
+    call (``torch.utils.checkpoint``'s early stop off)."""
     if not on:
         return fn
 
@@ -315,6 +378,9 @@ def remat(fn, on: bool):
         if torch.is_grad_enabled() and any(
                 isinstance(t, (torch.Tensor, Deferred)) and t.requires_grad
                 for t in leaves):
-            return checkpoint(body, *args, use_reentrant=False)
+            whole = any(isinstance(t, Deferred) and t.full_recompute
+                        for t in leaves)
+            with set_checkpoint_early_stop(not whole):
+                return checkpoint(body, *args, use_reentrant=False)
         return body(*args)
     return run

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import binarize as B
 from repro_torch.core.quantize import QuantMode
+from repro_torch.models import common as C
 from repro_torch.models import ffn as FF
 from repro_torch.models import linear as LN
 from repro_torch.models.common import randn
@@ -34,8 +35,7 @@ def _expert_w(p: dict, cfg) -> torch.Tensor:
     w = p["we"]
     if cfg.quant.mode == QuantMode.FLOAT:
         return w
-    alpha = torch.mean(torch.abs(w), dim=-2, keepdim=True).detach()
-    return B.binarize_ste(w) * alpha
+    return B.binarize_ste(w) * LN.latent_alpha(w, -2, keepdim=True)
 
 
 def init_moe(gen: torch.Generator, cfg) -> dict:
@@ -90,34 +90,28 @@ def _gate_act(cfg):
     return F.silu if cfg.ffn_type == "swiglu" else FF.gelu
 
 
-def apply_moe(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, D) -> (B, S, D)."""
-    m = cfg.moe
+def _experts(params: dict, cfg, xg: torch.Tensor, top_w: torch.Tensor,
+             slots: list, rows: slice) -> torch.Tensor:
+    """The experts of ``params`` (every expert of the layer, or one
+    position's, ``rows`` of the layer's slot tables) on their slots: the
+    (G, Tg, D) float32 sum of their weighted outputs.  ``slots``: per
+    group (slot_token, slot_flatidx) over the layer's E experts."""
     dt = cfg.activation_dtype
-    b, s, d = x.shape
-    g, tg = b, s
-    xg = x.reshape(g, tg, d)
-
-    logits = LN.apply_linear(params["router"], xg, cfg.quant,
-                             dtype=torch.float32)             # (G, Tg, E)
-    probs = torch.softmax(logits, dim=-1)
-    top_w, top_e = top_k(probs, m.top_k)                      # (G, Tg, K)
-    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
-    c = _capacity(tg, m)
-
+    tg, d = xg.shape[1:]
     w_up = _expert_w(params["we_up"], cfg).to(dt)
     w_gate = (_expert_w(params["we_gate"], cfg).to(dt)
               if "we_gate" in params else None)
     w_down = _expert_w(params["we_down"], cfg).to(dt)
     ys = []
-    for gi in range(g):
-        slot_token, slot_flatidx = _dispatch_indices(top_e[gi],
-                                                     m.num_experts, c)
+    for gi, (slot_token, slot_flatidx) in enumerate(slots):
+        slot_token, slot_flatidx = slot_token[rows], slot_flatidx[rows]
         tok = torch.clamp(slot_token, min=0).to(torch.int64)
         x_disp = xg[gi][tok] * (slot_token >= 0)[..., None]   # (E, C, D)
-        up = torch.matmul(x_disp.to(dt), w_up)                # (E, C, F)
+        # x_disp's gradient at its own precision: float32 partials at a
+        # tensor-parallel position (its float32 copy of x)
+        up = LN.share_product(x_disp, w_up, dt)               # (E, C, F)
         if w_gate is not None:
-            gate = torch.matmul(x_disp.to(dt), w_gate)
+            gate = LN.share_product(x_disp, w_gate, dt)
             h = _gate_act(cfg)(gate.to(torch.float32)).to(dt) * up
         else:
             h = FF.gelu(up.to(torch.float32)).to(dt)
@@ -127,14 +121,79 @@ def apply_moe(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
             slot_flatidx >= 0,
             w_flat[torch.clamp(slot_flatidx, min=0).to(torch.int64)],
             torch.zeros((), dtype=w_flat.dtype, device=w_flat.device))
-        y = torch.zeros((tg, d), dtype=torch.float32, device=x.device)
+        y = torch.zeros((tg, d), dtype=torch.float32, device=xg.device)
         y.index_add_(0, tok.reshape(-1),
                      (y_disp.to(torch.float32) * w_slot[..., None])
                      .reshape(-1, d))
         ys.append(y)
-    y = torch.stack(ys).reshape(b, s, d).to(dt)
-    if "shared" in params:
-        y = y + FF.apply_ffn(params["shared"], cfg, x)
+    return torch.stack(ys)
+
+
+def experts_split(cfg, m: int) -> bool:
+    """Whether the MoE layer splits over ``m`` model positions on whole
+    units: ``m`` divides the experts (and the shared experts' width)."""
+    moe = cfg.moe
+    return moe.num_experts % m == 0 and (
+        not moe.shared_experts
+        or moe.d_ff_expert * moe.shared_experts % m == 0)
+
+
+def parallel_traffic(cfg, tokens: int, dtype) -> list:
+    """The traffic entries (``common.Parallel``) of one expert-parallel
+    :func:`apply_moe` on ``tokens`` rows of ``dtype``: the input and the
+    float32 routing weights fanned out, the float32 expert outputs summed,
+    and the shared experts' ``w_down`` partial outputs summed."""
+    d = cfg.d_model
+    out = (C.fan_traffic(tokens * d, dtype)
+           + C.fan_traffic(tokens * cfg.moe.top_k, torch.float32)
+           + [("reduce", tokens * d, 4)])
+    if cfg.moe.shared_experts:
+        out += LN.row_parallel_traffic(cfg.quant, tokens * d, d)
+    return out
+
+
+def apply_moe(params, cfg, x: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, D) -> (B, S, D).
+
+    ``params`` may be a ``common.Parallel`` (expert parallelism over
+    ``model``, :func:`experts_split`): the router runs once, replicated;
+    top-k and the dispatch use the global expert ids and the capacity the
+    global E (a per-position E would change C, and so which choices are
+    dropped); position j runs the slots of its E / m experts, and the
+    positions' float32 outputs are summed.  Shared experts run as the
+    tensor-parallel FFN on the same positions."""
+    m = cfg.moe
+    dt = cfg.activation_dtype
+    b, s, d = x.shape
+    g, tg = b, s
+    xg = x.reshape(g, tg, d)
+    par = params if isinstance(params, C.Parallel) else None
+    whole = par.trees[0] if par is not None else params
+
+    logits = LN.apply_linear(whole["router"], xg, cfg.quant,
+                             dtype=torch.float32)             # (G, Tg, E)
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_e = top_k(probs, m.top_k)                      # (G, Tg, K)
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    c = _capacity(tg, m)
+    slots = [_dispatch_indices(top_e[gi], m.num_experts, c)
+             for gi in range(g)]
+    if par is None:
+        y = _experts(params, cfg, xg, top_w, slots, slice(None))
+        y = y.reshape(b, s, d).to(dt)
+        if "shared" in params:
+            y = y + FF.apply_ffn(params["shared"], cfg, x)
+        return y
+    xs, tws = par.fan(x), par.fan(top_w)
+    per = m.num_experts // par.size
+    y = par.reduce([
+        _experts(t, cfg, xj.reshape(g, tg, d), twj,
+                 [(st.to(xj.device), sf.to(xj.device)) for st, sf in slots],
+                 slice(j * per, (j + 1) * per))
+        for j, (t, xj, twj) in enumerate(zip(par.trees, xs, tws))])
+    y = y.reshape(b, s, d).to(dt)
+    if "shared" in whole:
+        y = y + FF.ffn_parallel(par.sub("shared"), cfg, xs)
     return y
 
 

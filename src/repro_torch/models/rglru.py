@@ -49,9 +49,14 @@ def init_rglru_block(gen: torch.Generator, cfg) -> dict:
     }
 
 
-def _gates(params: dict, cfg, x: torch.Tensor):
-    """x: (..., W) float32 -> (a, gated input b), both (..., W) float32."""
+def _gates(params: dict, cfg, x: torch.Tensor,
+           own: torch.Tensor | None = None):
+    """x: (..., W) float32 -> (a, gated input b), both (..., W') float32,
+    W' the width of ``params``' gate vectors.  ``own``: this position's
+    columns of ``x`` (tensor parallelism: ``wa``/``wx`` read the whole
+    width, the recurrence only its own); ``x`` itself by default."""
     r = cfg.rglru
+    own = x if own is None else own
     ra = torch.sigmoid(
         LN.apply_linear(params["wa"], x, cfg.quant, dtype=torch.float32)
         + params["ba"])
@@ -60,7 +65,7 @@ def _gates(params: dict, cfg, x: torch.Tensor):
         + params["bx"])
     log_a = -r.c_exponent * F.softplus(params["lambda_p"]) * ra
     a = torch.exp(log_a)
-    b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (ix * x)
+    b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (ix * own)
     return a, b
 
 
@@ -72,18 +77,73 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack(hs, dim=1)
 
 
-def rglru_block_forward(params: dict, cfg, x: torch.Tensor, *,
-                        init_cache: dict | None = None,
-                        return_cache: bool = False):
-    """x: (B, S, D) -> (B, S, D)."""
-    dt = cfg.activation_dtype
+def _branches(params: dict, cfg, x: torch.Tensor, conv_init=None):
+    """(GeLU branch, conv output, conv state), float32 (B, S, W)."""
     gelu_branch = gelu(LN.apply_linear(params["w_gelu"], x, cfg.quant,
                                        dtype=torch.float32))
     rec = LN.apply_linear(params["w_rec_in"], x, cfg.quant,
                           dtype=torch.float32)
-    conv_init = init_cache["conv"] if init_cache else None
     rec, conv_state = C.causal_conv1d(rec, params["conv_w"],
                                       params["conv_b"], conv_init)
+    return gelu_branch, rec, conv_state
+
+
+def width_split(cfg, m: int) -> bool:
+    """Whether the RG-LRU block splits over ``m`` model positions on
+    whole units: ``m`` divides the width (the recurrence is
+    elementwise)."""
+    return _width(cfg) % m == 0
+
+
+def parallel_traffic(cfg, tokens: int, dtype, m: int) -> list:
+    """The traffic entries (``common.Parallel``) of one tensor-parallel
+    block on ``tokens`` rows of ``dtype`` over ``m`` positions: the input
+    fanned out, the float32 conv output gathered (W / m columns a
+    position) and fanned out whole to ``wa``/``wx``, the partial outputs
+    of ``w_out`` summed."""
+    d, w = cfg.d_model, _width(cfg)
+    return (C.fan_traffic(tokens * d, dtype)
+            + [("gather", tokens * w // m, 4)]
+            + C.fan_traffic(tokens * w, torch.float32)
+            + LN.row_parallel_traffic(cfg.quant, tokens * d, d))
+
+
+def _block_parallel(par, cfg, x: torch.Tensor) -> torch.Tensor:
+    """The block over the positions of ``par`` (a ``common.Parallel``):
+    ``w_gelu``, ``w_rec_in``, the conv and the recurrence's vectors split
+    over the width; each position runs its columns of both branches and
+    of the recurrence.  ``wa``/``wx`` (W x W) are split over their
+    columns and read the whole conv output, which is split over the
+    width: it is gathered over ``model`` (counted) and given to every
+    position.  GSPMD makes the same choice: the weights' placement is
+    fixed by the rules (W x W / m a position), and moving the
+    (B, S, W) activation is the one way to meet the column split without
+    moving W x W weights.  ``w_out`` is row-parallel."""
+    dt = cfg.activation_dtype
+    made = [_branches(t, cfg, xj)
+            for t, xj in zip(par.trees, par.fan(x))]
+    whole = par.fan(par.gather([rec for _, rec, _ in made]))
+    ys = []
+    for t, (gelu_branch, rec, _), wj in zip(par.trees, made, whole):
+        a, b = _gates(t, cfg, wj, own=rec)
+        ys.append((gelu_branch * linear_scan(a, b)).to(dt))
+    return LN.apply_row_parallel(par, [t["w_out"] for t in par.trees], ys,
+                                 cfg.quant, dtype=dt)
+
+
+def rglru_block_forward(params, cfg, x: torch.Tensor, *,
+                        init_cache: dict | None = None,
+                        return_cache: bool = False):
+    """x: (B, S, D) -> (B, S, D).  ``params`` may be a
+    ``common.Parallel`` (:func:`width_split`), without a cache."""
+    if isinstance(params, C.Parallel):
+        if init_cache is not None or return_cache:
+            raise ValueError("the tensor-parallel RG-LRU block is the train "
+                             "step's; prefill and decode run whole")
+        return _block_parallel(params, cfg, x)
+    dt = cfg.activation_dtype
+    conv_init = init_cache["conv"] if init_cache else None
+    gelu_branch, rec, conv_state = _branches(params, cfg, x, conv_init)
     a, b = _gates(params, cfg, rec)                      # (B,S,W)
     if init_cache:
         # fold h0 into the first step: h_1 = a_1 h_0 + b_1

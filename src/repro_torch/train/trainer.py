@@ -17,8 +17,11 @@ a single-controller mesh (``launch.mesh``): the state placed by
 :func:`state_specs` (the reference's launcher's specs: ``param_specs``
 for the params, ``mu``, ``nu`` and ``ef_error``, the counter replicated),
 the batch by ``sharding.batch_specs``.  Each data slice runs its forward
-and backward in turn with its weights gathered per layer group, and each
-gradient is reduced to the copies that hold its slices
+and backward in turn, FSDP over the data axes and tensor-parallel over
+``model``: a block that splits on whole units (``fsdp.split_blocks``)
+runs at each model position on that position's slices, inside the block
+functions, every other weight is gathered whole per layer group, and
+each gradient is reduced to the copies that hold its slices
 (``distributed/fsdp.py``, which counts every gather and reduce); the loss
 is the mean of the data slices' and microbatches' losses, the gradients'
 norm and the compression scale sum over whole leaves, and AdamW and
@@ -230,7 +233,7 @@ def _sharded_train_step(cfg, tc: TrainConfig, mesh, mark, opt_cfg, dtype):
                 raise ValueError(f"state leaf {path} is not placed on the "
                                  f"step's mesh (trainer.state_specs, "
                                  f"sharding.Shardings.place)")
-        sp = FS.ShardedParams(params, mesh, dtype)
+        sp = FS.ShardedParams(params, mesh, cfg, dtype)
         views = [(t, t.grad) for t in sp.views()]
         mark("grad buffers")
         dev0 = mesh.devices[0]

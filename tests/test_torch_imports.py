@@ -77,6 +77,11 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.analysis.lint", "repro_torch.analysis.report",
             "repro_torch.analysis.__main__",
             "repro_torch.telemetry.probes"} <= set(names)
+    # and the tensor-parallel step's examples
+    assert {"repro_torch.examples", "repro_torch.examples.quickstart",
+            "repro_torch.examples.bitplane_first_layer",
+            "repro_torch.examples.train_binary_mlp",
+            "repro_torch.examples.serve_binary_lm"} <= set(names)
     assert leaked == []
 
 
@@ -95,7 +100,7 @@ def test_port_sources_name_no_jax_or_reference_import():
     files = [os.path.join(REPO, n)
              for n in ("chip_smoke.py", "chip_conv_tiles.py",
                        "chip_attention_times.py", "chip_train_profile.py",
-                       "chip_forwards_ab.py")]
+                       "chip_forwards_ab.py", "chip_tp_parity.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     bad = [(f, m) for f in files for m in _imports(f)

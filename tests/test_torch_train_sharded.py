@@ -8,8 +8,10 @@ data split is a microbatch split, so the sharded step on a (data, model)
 mesh with ``microbatches = n`` is held to the reference's step with
 ``microbatches = data x n``, which takes the same row slices (an MoE
 layer's capacity depends on its rows), within ``tests/_train.py``'s
-contract.  Every gather, reduce and partial sum the step counts equals
-``fsdp.step_traffic``'s reckoning from shapes.
+contract.  Every gather, reduce and partial sum the step counts, of the
+weights and of the tensor-parallel blocks' activations, equals
+``fsdp.step_traffic``'s reckoning from shapes, the config and the
+batch's shape.
 """
 import jax
 import numpy as np
@@ -58,7 +60,8 @@ def sharded_step(name, mode, shape, *, fsdp=True, rows=ROWS, **tc_kw):
     jout = jax.jit(JTR.make_train_step(cfg, jtc))(js, jbatch(nb))
     want = TFS.step_traffic(ts["params"], TSH.param_specs(
         ts["params"], mesh, fsdp=fsdp), mesh, microbatches=n,
-        compress=ttc.compress_grads, grads_bf16=ttc.grads_bf16)
+        compress=ttc.compress_grads, grads_bf16=ttc.grads_bf16, cfg=tcfg,
+        batch=tbatch(nb))
     placed = TSH.Shardings(mesh, TTR.state_specs(ts, mesh, fsdp=fsdp)
                            ).place(ts, donate=True)
     before = _counts()
@@ -102,21 +105,25 @@ def test_traffic_of_a_known_leaf():
     floats): each data slice gathers it once a microbatch (3 slices it
     lacks, 49152 bytes) and reduces its gradient to the 3 copies its first
     position does not hold; the layer norms' scales (spec ()) are one
-    shared copy, neither gathered nor reduced."""
+    shared copy, neither gathered nor reduced.  The tree has no layered
+    block, so no tensor-parallel traffic."""
     mesh = TMESH.make_host_mesh(2, 2, device="cpu")
     head = {"head": {"w": torch.empty((64, 256), device="meta")},
             "ln_out": {"scale": torch.empty((64,), device="meta")}}
     specs = TSH.param_specs(head, mesh)
     assert specs == {"head/w": ("data", "model"), "ln_out/scale": ()}
-    t = TFS.step_traffic(head, specs, mesh)
+    _, tcfg = configs("starcoder2-3b", "float")
+    nb = tbatch(batch_np(tcfg, b=ROWS))
+    none = dict.fromkeys(TFS.TP_COUNTERS, 0)
+    t = TFS.step_traffic(head, specs, mesh, cfg=tcfg, batch=nb)
     assert t == {"sharding.gathers": 2, "sharding.gathered_bytes": 2 * 49152,
                  "sharding.reduces": 6, "sharding.reduced_bytes": 2 * 49152,
-                 "sharding.partial_sums": 3}
-    t2 = TFS.step_traffic(head, specs, mesh, microbatches=2, compress=True,
-                          grads_bf16=True)
+                 "sharding.partial_sums": 3, **none}
+    t2 = TFS.step_traffic(head, specs, mesh, cfg=tcfg, batch=nb,
+                          microbatches=2, compress=True, grads_bf16=True)
     assert t2 == {"sharding.gathers": 4, "sharding.gathered_bytes": 98304,
                   "sharding.reduces": 12, "sharding.reduced_bytes": 98304,
-                  "sharding.partial_sums": 6}
+                  "sharding.partial_sums": 6, **none}
 
 
 def test_shared_copy_updated_once():
