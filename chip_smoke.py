@@ -123,10 +123,18 @@ Phases, each printing its lines:
    the specs' reckoning, the counted gathers, reductions and partial
    sums of the weights and the tensor-parallel activations against
    ``fsdp.step_traffic``, ms a step, tokens/s and the peak beside the
-   reckoning and beside the FSDP-only step's readings (PERF.md §5); the
-   (2, 2)-trained binary tree made whole, packed and
-   served (K5 = K4 = 181, equal to the plain route); gemma2-9b's
-   per-position bytes on (2, 2), (4, 1) and 16 x 16 from the dry run;
+   reckoning and beside the readings of the FSDP-only step and of the
+   step that gathered the embedding and the head whole (PERF.md §5); the embedding and the loss's logits vocabulary-parallel
+   wherever |model| divides the vocabulary (49,152 over 2 and 4), the
+   bytes ``embed/table`` and ``head/w`` gather and reduce a step beside
+   those of gathering them whole; the (2, 2)-trained binary tree made
+   whole, packed and served (K5 = K4 = 181, equal to the plain route);
+   mamba2-1.3b's split form (``fused_proj=False``) at its published
+   widths, ``MAMBA_TRAIN_LAYERS`` layers, on (1, 2) (its 64 heads and its
+   50,280-id vocabulary split over 2), held to the unsharded step at
+   bfloat16 and again at float32 activations within phase 9's bounds;
+   gemma2-9b's per-position bytes on (2, 2), (4, 1) and 16 x 16 from the
+   dry run;
 11. static analysis and launch probes (``repro_torch.analysis``,
    ``telemetry/probes.py``): ``BCNNSpec()`` and ``BMLPSpec()`` (made
    again from seed 0) at batches 1, 8, 32 and 256 in both modes and
@@ -3183,7 +3191,11 @@ def phase9_training(drv, dev) -> dict:
 # off in 0.19 %: chip_tp_parity.py), so the split steps round apart:
 # grad_norm 5.6e-4 on (2, 2) and 7.0e-4 on (1, 4) from the unsharded
 # step (H100 readings, PERF.md §6; the unsharded bfloat16 step reads
-# 6.9e-4 from its float32 twin).  So a float mesh whose step splits a
+# 6.9e-4 from its float32 twin).  With the embedding and the head
+# vocabulary-parallel (1, 4) reads 8.9e-4: the unsharded bfloat16 step
+# sits 6.9e-4 from the float32 one, the split step 2.1e-4 on the other
+# side, 1.9e-4 of it the vocabulary split's rounding (chip_tp_parity.py
+# vocab).  So a float mesh whose step splits a
 # block over 'model' holds grad_norm at bfloat16 within TP_BF16_NORM_RTOL,
 # set from those readings, loss and mu within phase 9's bounds; and it
 # runs again at float32 activations (state, batch and seed alike), held
@@ -3197,11 +3209,42 @@ def phase9_training(drv, dev) -> dict:
 TRAIN_MESHES = (("float", (2, 2)), ("float", (4, 1)), ("float", (1, 4)),
                 ("binary", (2, 2)))
 SAME_ROWS = dict(loss_rtol=1e-6, norm_rtol=1e-6, mu=1e-6)
-TP_BF16_NORM_RTOL = 2e-3    # about three times the larger reading
+TP_BF16_NORM_RTOL = 2e-3    # over twice the larger reading
 FSDP_ONLY = {("float", (2, 2)): (1153.6, 53.65e9),
              ("float", (4, 1)): (2177.6, 53.13e9),
              ("binary", (2, 2)): (2115.1, 54.30e9)}
+# WHOLE_VOCAB holds the readings of the same meshes before the embedding
+# and the head ran vocabulary-parallel (every block split where it could,
+# those two gathered whole; H100 80GB HBM3 at 700 W, PERF.md §5): warm
+# ms, peak bytes, weight bytes gathered a step; printed beside this run's.
+WHOLE_VOCAB = {("float", (2, 2)): (2046.2, 53.65e9, 24.839e9),
+               ("float", (4, 1)): (1770.3, 53.13e9, 72.704e9),
+               ("float", (1, 4)): (710.52, 54.89e9, 4.586e9),
+               ("binary", (2, 2)): (2857.8, 55.06e9, 24.839e9)}
+# WHOLE_VOCAB_LEAVES: the bytes starcoder2-3b's embed/table and head/w
+# gathered, and reduced, a (4, 512) step when both were gathered whole at
+# each data slice's first position (fsdp.step_traffic of those two leaves
+# before they ran vocabulary-parallel), by (data, model).
+WHOLE_VOCAB_LEAVES = {(2, 2): 1_811_939_328, (4, 1): 3_623_878_656,
+                      (1, 4): 905_969_664}
 TRAIN_SIZES = {"gemma2-9b": ((2, 2), (4, 1))}
+# Mamba-2's split form over 'model': mamba2-1.3b at its published widths
+# (d_model 2048, 64 heads of 64, d_state 128, vocabulary 50,280), 16 of
+# its 48 layers, on (1, 2) at (4, 512).  Loss and grad_norm are held
+# within phase 9's bounds; mu within MAMBA_MU of each leaf's largest, set
+# from readings against a float64 step from the same state and batch
+# (chip_tp_parity.py ssm; H100 80GB HBM3, 700.00 W, PERF.md §6): A_log's
+# gradient cancels (its terms' magnitudes sum to 10-19 times a layer's
+# largest head), so the unsharded float32 step itself sits 1.33e-4 of
+# the leaf's largest from float64 and the split one 1.55e-4; the two
+# read 9.96e-5 apart, and the unsharded step in two microbatches (the
+# same sums in another order) 1.31e-4 from it.  At bfloat16 the two sit
+# 0.041 and 0.048 from float64 (dt_bias) and 0.038 apart.  Each bound is
+# above the sum of the two steps' distances from float64 (2.9e-4, 0.090).
+MAMBA_TRAIN = "mamba2-1.3b"
+MAMBA_TRAIN_LAYERS = 16
+MAMBA_TRAIN_MESH = (1, 2)
+MAMBA_MU = {"bfloat16": 0.1, "float32": 5e-4}
 
 
 def host_leaves(tree) -> dict:
@@ -3229,13 +3272,13 @@ def unsharded_step(cfg, tc, dev, batch) -> dict:
     return out
 
 
-def mu_gap(placed_mu, host_mu, dev) -> tuple[float, int]:
+def mu_gap(placed_mu, host_mu, dev) -> tuple[float, int, str]:
     """(largest |mu - reference mu| over each leaf's largest reference
     value, elements past MICRO_NEAR of the value plus MICRO_NEAR of the
-    largest), copy by copy of every placed leaf against the reference's
-    slice."""
+    largest, the leaf of the largest), copy by copy of every placed leaf
+    against the reference's slice."""
     from repro_torch.tree import leaves_with_path
-    worst, far = 0.0, 0
+    worst, far, at = 0.0, 0, ""
     for path, pl in leaves_with_path(placed_mu):
         copies = pl.copies()
         top = max(float(host_mu[path][idx].to(dev).abs().max())
@@ -3247,8 +3290,9 @@ def mu_gap(placed_mu, host_mu, dev) -> tuple[float, int]:
             far += int((d > MICRO_NEAR * (ref.abs() + top)).sum())
             leaf = max(leaf, float(d.max()))
             del ref, d
-        worst = max(worst, leaf / max(top, 1e-30))
-    return worst, far
+        if leaf / max(top, 1e-30) > worst:
+            worst, at = leaf / max(top, 1e-30), path
+    return worst, far, at
 
 
 def sharded_run(what, cfg, tc, shape, dev, batch, check, what_key=None
@@ -3347,27 +3391,54 @@ def sharded_run(what, cfg, tc, shape, dev, batch, check, what_key=None
     out["ms_warm"] = e0.elapsed_time(e1)
     out["peak"] = max(out["peak"], torch.cuda.max_memory_allocated() - base)
     fsdp_only = FSDP_ONLY.get(what_key)
+    whole = WHOLE_VOCAB.get(what_key)
     log(f"train {what}: step 1, warm: loss {float(m['loss']):.7g}, "
         f"{out['ms_warm']:.6g} ms ({b * s / out['ms_warm'] * 1e3:.6g} "
         f"tokens/s); peak over both steps {out['peak']} bytes against the "
-        f"reckoning {reck['total']}" + (
+        f"reckoning {reck['total']}; weights gathered "
+        f"{got['sharding.gathered_bytes']} bytes a step" + (
             f"; the FSDP-only step read {fsdp_only[0]} ms warm and a peak "
-            f"of {fsdp_only[1]:.4g} bytes" if fsdp_only else ""))
+            f"of {fsdp_only[1]:.4g} bytes" if fsdp_only else "") + (
+            f"; with the vocabulary gathered whole the step read "
+            f"{whole[0]} ms warm, a peak of {whole[1]:.4g} bytes and "
+            f"{whole[2]:.5g} bytes gathered" if whole else ""))
+    vocab_traffic(what, meta, mesh, cfg, batch)
     return out, failed, state
+
+
+def vocab_traffic(what, meta, mesh, cfg, batch) -> None:
+    """Logs the weight bytes ``embed/table`` and ``head/w`` gather and
+    reduce a step on ``mesh`` (``fsdp.step_traffic`` of those leaves:
+    vocabulary-parallel where ``fsdp.vocab_split``), their activation
+    traffic, and the bytes of gathering them whole (WHOLE_VOCAB_LEAVES)."""
+    from repro_torch.distributed import fsdp as FS
+    from repro_torch.distributed import sharding as SH
+    sub = {k: meta[k] for k in ("embed", "head") if k in meta}
+    specs = SH.param_specs(sub, mesh)
+    t = FS.step_traffic(sub, specs, mesh, cfg=cfg, batch=batch)
+    split = sorted(p for p in specs if FS.vocab_split(p, specs[p]))
+    whole = WHOLE_VOCAB_LEAVES.get((mesh.shape["data"], mesh.shape[
+        "model"])) if cfg.name == TRAIN_LM else None
+    log(f"train {what}: vocabulary-parallel leaves {split}; embed/table "
+        f"and head/w gather {t['sharding.gathered_bytes']} and reduce "
+        f"{t['sharding.reduced_bytes']} bytes a step" + (
+            f" (gathered whole: {whole} of each)" if whole else "")
+        + "; their activations: "
+        + ", ".join(f"{k.split('.', 1)[1]} {t[k]}" for k in FS.TP_COUNTERS))
 
 
 def hold_to(what, got, ref, bounds, dev, placed_mu) -> list[str]:
     """``got`` (a sharded run) against ``ref`` (an unsharded step): loss,
     grad_norm and mu within ``bounds``; logs every figure, returns the
     failures."""
-    worst, far = mu_gap(placed_mu, ref["mu"], dev)
+    worst, far, at = mu_gap(placed_mu, ref["mu"], dev)
     l_r = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
     n_r = abs(got["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"])
     log(f"train {what}: loss {got['loss']:.8g} / {ref['loss']:.8g} (rtol "
         f"{l_r:.3g}, bound {bounds['loss_rtol']}); grad_norm "
         f"{got['grad_norm']:.8g} / {ref['grad_norm']:.8g} (rtol {n_r:.3g}, "
         f"bound {bounds['norm_rtol']}); mu max abs diff {worst:.3g} of its "
-        f"leaf's largest (bound {bounds['mu']}), {far} elements past "
+        f"leaf's largest ({at}; bound {bounds['mu']}), {far} elements past "
         f"{MICRO_NEAR} of the value plus {MICRO_NEAR} of the largest")
     if l_r > bounds["loss_rtol"] or worst > bounds["mu"] or \
             n_r > bounds["norm_rtol"]:
@@ -3485,10 +3556,61 @@ def phase10_sharded(drv, dev) -> dict:
                 del state
                 free_card()
         del refs
+    failed += mamba_split_step(dev, out)
     dryrun_sizes()
     if failed:
         raise AssertionError(f"train sharded: {failed} failed (logged above)")
     return out
+
+
+def mamba_split_step(dev, out) -> list[str]:
+    """Mamba-2's split form tensor-parallel on ``MAMBA_TRAIN_MESH``, at
+    bfloat16 and again at float32 activations, each held to the
+    unsharded step from the same state and batch: loss and grad_norm
+    within phase 9's bounds (its bfloat16 ``grad_norm`` read 6.28e-5,
+    within 1e-4: the unsharded bfloat16 step sits 6.4e-5 from a float64
+    step, the split one 1.4e-6), mu within MAMBA_MU (the comment above
+    it).  Returns the failures."""
+    import dataclasses
+    import time
+    from repro_torch import configs
+    from repro_torch.data.synthetic import TokenStreamConfig, token_batch
+    from repro_torch.distributed import fsdp as FS
+    t0 = time.monotonic()
+    base = configs.get_config(MAMBA_TRAIN)
+    cfg = dataclasses.replace(base, num_layers=MAMBA_TRAIN_LAYERS,
+                              ssm=dataclasses.replace(base.ssm,
+                                                      fused_proj=False))
+    m = MAMBA_TRAIN_MESH[1]
+    if FS.split_blocks(cfg, m) != {"ssm"}:
+        raise AssertionError(f"{MAMBA_TRAIN}: split blocks "
+                             f"{FS.split_blocks(cfg, m)} on {m} positions")
+    b, s = TRAIN_BATCH
+    batch = token_batch(TokenStreamConfig(cfg.vocab_size, s, b), 0, dev)
+    tc = train_config(warmup=1)
+    failed = []
+    for dtype in ("bfloat16", "float32"):
+        bounds = {**MICRO_TOL, "mu": MAMBA_MU[dtype]}
+        c = dataclasses.replace(cfg, dtype=dtype)
+        ref = unsharded_step(c, tc, dev, batch)
+        what = (f"sharded {MAMBA_TRAIN} split form, {MAMBA_TRAIN_LAYERS} "
+                f"layers, {dtype} {MAMBA_TRAIN_MESH}")
+        log(f"train {what}: the unsharded step, loss {ref['loss']:.8g} "
+            f"grad_norm {ref['grad_norm']:.8g}, {ref['ms']:.6g} ms")
+
+        def check(got, state, what=what, ref=ref, bounds=bounds):
+            return hold_to(f"{what} against the unsharded step", got, ref,
+                           bounds, dev, state["opt"]["mu"])
+
+        got, bad, state = sharded_run(what, c, tc, MAMBA_TRAIN_MESH, dev,
+                                      batch, check)
+        failed += bad
+        out[what] = got
+        del state, ref
+        free_card()
+    log(f"train sharded {MAMBA_TRAIN} split form: "
+        f"{time.monotonic() - t0:.1f} s")
+    return failed
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,7 @@ Placed` leaves): FSDP over the data axes, tensor parallelism over
 ``model``.
 
 * Each data slice of the batch (``sharding.data_positions``) runs its
-  forward and backward once.  Outside the tensor-parallel blocks it runs
+  forward and backward once.  Outside the tensor-parallel parts it runs
   at its first position, each weight whole: a leaf split over the mesh
   is *gathered* there from its copies, the leaves of a layer group as
   the group runs (a ``common.Deferred`` that ``common.remat`` makes, and
@@ -17,17 +17,27 @@ Placed` leaves): FSDP over the data axes, tensor parallelism over
 * A layer's block runs tensor-parallel over the data slice's |model|
   positions where its split falls on whole units (:func:`split_blocks`:
   attention when |model| divides the query and the KV heads, the dense
-  FFN its d_ff, MoE its experts, RG-LRU its width; the embedding, the
-  head and Mamba-2 never).  Each position computes with its own slice of
-  the block's leaves split over ``model``, gathered over the data axes
-  only, never over ``model`` (:class:`_Block`, a ``common.Deferred``
-  made again in the recompute, which runs whole); every other leaf of
-  the block is gathered once, as above.  The block functions run each
-  position on its slice and combine them through
+  FFN its d_ff, MoE its experts, RG-LRU its width, Mamba-2's split form
+  its heads; the fused Mamba-2 never).  Each position computes with its
+  own slice of the block's leaves split over ``model``, gathered over
+  the data axes only, never over ``model`` (:class:`_Block`, a
+  ``common.Deferred`` made again in the recompute, which runs whole);
+  every other leaf of the block is gathered once, as above.  The block
+  functions run each position on its slice and combine them through
   :class:`~repro_torch.models.common.Parallel`'s collectives: the
   column-parallel input fanned out to the positions, the row-parallel
   partial outputs summed in float32, an activation split over ``model``
   gathered (RG-LRU's conv output).
+* The embedding's table and the untied head's weight run
+  vocabulary-parallel where their placed spec holds ``model`` on the
+  vocabulary axis (:func:`vocab_split`; ``_fit`` drops it where |model|
+  does not divide the vocabulary, and ``replicate_embed`` replicates the
+  table: such a leaf is gathered whole).  Each position gathers its own
+  vocabulary slice over the data axes only, once a microbatch, and the
+  tree the data slice runs on holds a :class:`_Positions` in the leaf's
+  node's place: the lookup (``common.embed``) sums the positions' masked
+  rows, and the loss (``models/model.py::loss_fn``) reduces each
+  position's logit columns to a partial log-sum-exp and target logit.
 * A gathered weight's gradient is *reduced* back to the copies: each
   copy gets its slice, added by autograd into its own accumulator
   (the copy's preset ``.grad``), so a copy that several positions share
@@ -48,28 +58,36 @@ Counting, on ``telemetry.default()``'s registry.  The weights
 * ``sharding.partial_sums`` + (slices - 1) per leaf per whole-leaf sum
   (float32 scalars).
 
-The activations of the tensor-parallel blocks (:data:`TP_COUNTERS`),
-each +1 a collective and + the bytes of the |model| - 1 positions'
-tensors that the data slice's first position does not hold:
+The activations between model positions (:data:`TP_COUNTERS`), each +1
+a collective and + the bytes of the |model| - 1 positions' tensors that
+the data slice's first position does not hold.  The vocabulary-parallel
+embedding and loss count on the same kinds as the tensor-parallel
+blocks (no counters of their own):
 
 * ``sharding.tp_reduces`` / ``sharding.tp_reduced_bytes``: the forward's
   sums over ``model`` of row-parallel partial outputs (float32), and in
   the binary modes of each row-parallel linear's partial sums of |w|
-  (its alpha, float64), in the forward and again in the recompute;
+  (its alpha, float64), of Mamba-2's partial sums of squares before its
+  norm, and of the loss's target logits (float32), in the forward and
+  again in the recompute; the embedding's masked rows (in the activation
+  dtype), once a microbatch;
 * ``sharding.tp_grad_reduces`` / ``sharding.tp_grad_reduced_bytes``: the
   backward's sums over ``model`` of the float32 partial gradients of a
-  column-parallel block's inputs (the residual stream's normed input,
-  whisper's encoder output, MoE's routing weights, RG-LRU's gathered
-  conv output), rounded once after the sum;
+  fanned-out input (the residual stream's normed input, the loss's
+  normed hidden state, whisper's encoder output, MoE's routing weights,
+  RG-LRU's gathered conv output, Mamba-2's B, C, dt and its norm's sum
+  of squares), rounded once after the sum;
 * ``sharding.tp_gathers`` / ``sharding.tp_gathered_bytes``: activations
-  gathered over ``model`` (RG-LRU's conv output, float32), in the
-  forward and again in the recompute.
+  gathered over ``model`` (RG-LRU's conv output, float32; the loss's
+  partial log-sum-exps, float32), in the forward and again in the
+  recompute.
 
 :func:`step_traffic` reckons all of them from shapes, specs, the mesh,
 the config and the batch's shape alone (each block module's
-``parallel_traffic`` for the activations); the tests and ``chip_smoke.py``
-hold the counts to it, and the dry run (``launch/dryrun.py``) reports it
-for meshes no card holds.
+``parallel_traffic`` for the activations, ``common.embed_traffic`` and
+``model.loss_traffic`` for the vocabulary's); the tests and
+``chip_smoke.py`` hold the counts to it, and the dry run
+(``launch/dryrun.py``) reports it for meshes no card holds.
 """
 from __future__ import annotations
 
@@ -80,9 +98,12 @@ import torch
 from repro_torch import telemetry as _telemetry
 from repro_torch.distributed import sharding as SH
 from repro_torch.models import attention as A
+from repro_torch.models import common as C
 from repro_torch.models import ffn as FF
+from repro_torch.models import model as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as R
+from repro_torch.models import ssm as S
 from repro_torch.models.common import Deferred, Parallel, grad_views
 from repro_torch.tree import leaves_with_path, map_with_path
 
@@ -126,12 +147,14 @@ def split_blocks(cfg, m: int) -> frozenset:
     where ``m`` divides the query and the KV heads, so GQA groups stay
     whole; the FFN (``'mlp'``) where it divides ``d_ff``, or for MoE the
     experts (and the shared experts' width); RG-LRU (``'rec'``) where it
-    divides the width.  Mamba-2 (its fused in-projection interleaves five
-    blocks on one axis), the embedding and the head never."""
+    divides the width; Mamba-2's split form (``'ssm'``) where it divides
+    the heads (``ssm.heads_split``).  The fused Mamba-2 never: its
+    in-projection interleaves five blocks on one axis.  The embedding and
+    the head are not blocks: :func:`vocab_split`."""
     if m <= 1:
         return frozenset()
     out = set()
-    if A.heads_split(cfg, m):
+    if cfg.num_heads and A.heads_split(cfg, m):
         out |= {"attn", "xattn"}
     if cfg.moe is not None:
         if MOE.experts_split(cfg, m):
@@ -140,7 +163,20 @@ def split_blocks(cfg, m: int) -> frozenset:
         out.add("mlp")
     if cfg.rglru is not None and R.width_split(cfg, m):
         out.add("rec")
+    if cfg.ssm is not None and S.heads_split(cfg, m):
+        out.add("ssm")
     return frozenset(out)
+
+
+def vocab_split(path: str, spec: tuple) -> bool:
+    """Whether leaf ``path`` placed by ``spec`` runs vocabulary-parallel:
+    one of ``sharding.VOCAB_LEAVES`` (the embedding's table, the untied
+    head's weight), whose rule puts ``model`` on the vocabulary axis,
+    with ``model`` still in ``spec``.  ``sharding._fit`` drops that
+    assignment where |model| does not divide the vocabulary, and
+    ``replicate_embed`` gives the table the spec (): then the leaf is
+    gathered whole, as any other."""
+    return path in SH.VOCAB_LEAVES and "model" in _names(spec)
 
 
 def _names(spec) -> set:
@@ -360,13 +396,14 @@ class _Fan(torch.autograd.Function):
 
 class _Reduce(torch.autograd.Function):
     """Forward: the sum of the positions' tensors on ``home``, in float32
-    (float64 stays float64; counted); backward: the gradient at every
-    position."""
+    (float64 stays float64), or with ``wide`` False in their own dtype
+    (counted); backward: the gradient at every position."""
 
     @staticmethod
-    def forward(ctx, home, *parts):
+    def forward(ctx, home, wide, *parts):
         ctx.devices = [p.device for p in parts]
-        dtype = torch.promote_types(parts[0].dtype, torch.float32)
+        dtype = torch.promote_types(parts[0].dtype, torch.float32) \
+            if wide else parts[0].dtype
         out = parts[0].to(home, dtype, copy=True)
         for p in parts[1:]:
             out.add_(p.to(home, dtype))
@@ -377,7 +414,7 @@ class _Reduce(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return (None, *(g.to(dev) for dev in ctx.devices))
+        return (None, None, *(g.to(dev) for dev in ctx.devices))
 
 
 class _Cat(torch.autograd.Function):
@@ -415,8 +452,8 @@ class _Positions(Parallel):
     def fan(self, x: torch.Tensor) -> list:
         return list(_Fan.apply(self.devices, x))
 
-    def reduce(self, parts: list) -> torch.Tensor:
-        return _Reduce.apply(self.home, *parts)
+    def reduce(self, parts: list, wide: bool = True) -> torch.Tensor:
+        return _Reduce.apply(self.home, wide, *parts)
 
     def gather(self, parts: list, dim: int = -1) -> torch.Tensor:
         return _Cat.apply(self.home, dim % parts[0].ndim, *parts)
@@ -452,7 +489,9 @@ class ShardedParams:
     leaf's copies as autograd leaves with zeroed gradient accumulators
     (``grads``), and, per data slice, the params tree its forward reads
     (:meth:`tree_for`), its tensor-parallel blocks (``cfg``'s
-    :func:`split_blocks`) as :class:`_Block` leaves."""
+    :func:`split_blocks`) as :class:`_Block` leaves and its
+    vocabulary-split nodes (:func:`vocab_split`) as
+    :class:`_Positions`."""
 
     def __init__(self, params, mesh, cfg, dtype=None):
         self.mesh = mesh
@@ -465,6 +504,8 @@ class ShardedParams:
         self.params = params
         self.leaves = {p: _Leaf(p, pl, dtype, self.ranks)
                        for p, pl in leaves_with_path(params)}
+        self.vocab = {p for p, pl in leaves_with_path(params)
+                      if vocab_split(p, pl.spec)}
 
     @property
     def n_data(self) -> int:
@@ -488,15 +529,28 @@ class ShardedParams:
             return layer(node, path)
         return tuple(layer(t, f"{path}/{i}") for i, t in enumerate(node))
 
+    def _vocab(self, node: dict, path: str, d: int) -> _Positions:
+        """A vocabulary-split node for data slice ``d``: position ``j``'s
+        tree holds its vocabulary slice, gathered over the data axes only,
+        the slices in vocabulary order."""
+        devices = [self.mesh.devices[p] for p in self.ranks[d]]
+        trees = [map_with_path(lambda p, _, j=j: self.leaves[p].gather(
+            d, None, j), node, path) for j in range(self.m)]
+        return _Positions(trees, devices, devices[0])
+
     def tree_for(self, d: int):
         """The params tree data slice ``d`` runs on: stacked groups as
         lists of per-group trees of :class:`~repro_torch.models.common.
-        Deferred` leaves, every other leaf gathered now."""
+        Deferred` leaves, vocabulary-split nodes as :class:`_Positions`
+        of slices gathered now, every other leaf gathered now."""
         def walk(path, node):
             if _STACKS.match(path):
                 first = next(leaves_with_path(node, path))[0]
                 return [self._group(node, path, d, g)
                         for g in range(self.leaves[first].groups)]
+            if isinstance(node, dict) and any(
+                    f"{path}/{k}" in self.vocab for k in node):
+                return self._vocab(node, path, d)
             if isinstance(node, dict):
                 return {k: walk(f"{path}/{k}" if path else k, v)
                         for k, v in node.items()}
@@ -556,6 +610,8 @@ def _activation_traffic(params, cfg, split, m, batch, pieces) -> dict:
                                          enc_dt)
         elif block == "rec":
             entries = R.parallel_traffic(cfg, tokens, x_dt, m)
+        elif block == "ssm":
+            entries = S.parallel_traffic(cfg, tokens, x_dt)
         elif any(p.startswith("router/") for p in leaves):
             entries = MOE.parallel_traffic(cfg, tokens, x_dt)
         else:
@@ -565,6 +621,31 @@ def _activation_traffic(params, cfg, split, m, batch, pieces) -> dict:
             n = passes * pieces * groups
             out[count] += n
             out[nbytes] += n * (m - 1) * numel * item
+    return out
+
+
+def _vocab_traffic(cfg, vocab: set, m: int, batch, pieces: int) -> dict:
+    """The :data:`TP_COUNTERS` of one step's vocabulary-parallel
+    embedding and loss, ``vocab`` the vocabulary-split leaves' paths: for
+    each of the ``pieces`` microbatches of ``rows / pieces`` rows, the
+    lookup's sum once (where the batch has no ``"embeds"``), and each
+    loss chunk's entries, the forward's in the forward and again in the
+    recompute, the fan's gradient sum once."""
+    out = dict.fromkeys(TP_COUNTERS, 0)
+    rows, s = tuple(batch["labels"].shape)
+    r = rows // pieces
+    entries = []                                   # (kind, numel, item, n)
+    if "embed/table" in vocab and batch.get("embeds") is None:
+        entries += [e + (1,) for e in C.embed_traffic(
+            r * s, cfg.d_model, cfg.activation_dtype)]
+    if ("embed/table" if cfg.tie_embeddings else "head/w") in vocab:
+        chunk, n = M.loss_chunks(s)
+        entries += [(kind, numel, item, n * _TP_KINDS[kind][2])
+                    for kind, numel, item in M.loss_traffic(cfg, r * chunk)]
+    for kind, numel, item, n in entries:
+        count, nbytes, _ = _TP_KINDS[kind]
+        out[count] += pieces * n
+        out[nbytes] += pieces * n * (m - 1) * numel * item
     return out
 
 
@@ -601,7 +682,8 @@ def step_traffic(params, specs: dict, mesh, *, cfg, batch,
         if n_slices > 1:
             out["sharding.partial_sums"] += (n_slices - 1) * (
                 2 if compress else 1)
-        if block_of(path) in split and "model" in _names(specs[path]):
+        if vocab_split(path, specs[path]) or (
+                block_of(path) in split and "model" in _names(specs[path])):
             # each position gathers its model slice over the data axes
             for j in range(m):
                 column = [rank[j] for rank in ranks]
@@ -638,4 +720,8 @@ def step_traffic(params, specs: dict, mesh, *, cfg, batch,
                 out["sharding.reduced_bytes"] += \
                     microbatches * sum(others) * item
     out.update(_activation_traffic(params, cfg, split, m, batch, pieces))
+    vocab = {p for p, _ in leaves_with_path(params)
+             if vocab_split(p, specs[p])}
+    for k, v in _vocab_traffic(cfg, vocab, m, batch, pieces).items():
+        out[k] += v
     return out

@@ -155,7 +155,7 @@ _PARAM_RULES: list[tuple[str, tuple]] = [
     (r"ssm/norm_tp/scale$", ("model",)),
     (r"ssm/out_proj_tp/w$", ("model", "data")),
     (r"ssm/.*",          (None,)),
-    # embeddings / head: vocab over model
+    # embeddings / head: vocab over model (VOCAB_LEAVES)
     (r"embed/table$",    ("model", "data")),
     (r"head/w$",         ("data", "model")),
     (r"dec_pos$",        (None, None)),
@@ -176,6 +176,10 @@ _PARAM_RULES: list[tuple[str, tuple]] = [
     (r"w_packed$",             (None, None)),   # fallback: replicate
     (r"alpha$",                (None,)),
 ]
+
+# The leaves whose 'model' axis in the rules above is the vocabulary:
+# the lookup's table and the untied head (``fsdp.vocab_split``).
+VOCAB_LEAVES = ("embed/table", "head/w")
 
 # The card's memory: one H100 80GB HBM3 (``should_fsdp``'s default and
 # the dry run's fit test).  The reference's 16e9 is a TPU's HBM.

@@ -2,8 +2,23 @@
 with no card and no memory (the reference's ``launch/dryrun.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch starcoder2-3b \
-        --shape train_4k [--multi-pod] [--quant binary] [--out DIR]
+        --shape train_4k [--multi-pod] [--quant binary] [--out DIR] \
+        [--fsdp true|false|auto] [--grads-bf16] [--replicate-embed] \
+        [--ssm-split] [--kv-int8] [--kv-layout seq_model|batch_heads] \
+        [--layers N] [--tag TAG]
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod]
+
+The options are the reference's ``run_cell(..., layers_override, opts,
+tag)``, with its defaults and meanings: ``fsdp`` (True, False or
+``"auto"``, ``sharding.should_fsdp``) and ``replicate_embed`` choose the
+params' specs (the prefill and decode cells replicate over the data
+axes only where ``fsdp`` is False), ``grads_bf16`` halves the gradient
+accumulators and the gradients' traffic, ``ssm_split`` builds Mamba-2's
+split form (``fused_proj=False``, tensor-parallel over ``model``),
+``kv_int8`` the int8 decode cache, ``kv_layout`` the cache's layout
+(``"seq_model"`` by default), ``layers_override`` the depth; the record
+carries ``opts``, ``tag`` and ``layers_override``, and the cell's file
+name the depth and the tag, as the reference's does.
 
 The reference lowers and compiles each cell's step on 512 XLA devices and
 reads XLA's memory and cost analyses.  The port has no such compiler.
@@ -17,10 +32,13 @@ per position and from the specs alone:
   the largest position's, and whether their sum fits the card's memory
   (``sharding.HBM_BYTES``, one H100's 80 GB).  Activations are not
   counted;
+* ``param_specs`` (and ``cache_specs`` for decode): ``{path: spec}``;
 * ``step_traffic`` (train): what the port's sharded step
   (``train/trainer.py``: FSDP over the data axes, tensor parallelism over
   ``model`` wherever ``fsdp.split_blocks`` lets a block split on whole
-  units) moves on this mesh, by the counting rule of
+  units, the embedding and the head vocabulary-parallel wherever
+  ``fsdp.vocab_split`` lets them) moves on this mesh, by the counting
+  rule of
   ``distributed/fsdp.py`` applied to shapes (``fsdp.step_traffic``),
   summed over the data slices: the weights' gathers, reduces and partial
   sums, and the tensor-parallel blocks' activation reduces, input-gradient
@@ -38,6 +56,7 @@ Outputs: one JSON file per cell under ``--out``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -108,50 +127,82 @@ def _most(tree, specs, mesh) -> int:
     return max(SH.position_bytes(tree, specs, mesh))
 
 
-def _train_cell(cfg, shape, mesh) -> dict:
-    """The reference's baseline train cell: FSDP, float32 masters and
-    gradients."""
+def _fsdp(cfg, mesh, opts: dict) -> bool:
+    """The reference's train-cell rule: FSDP unless ``opts["fsdp"]`` is
+    False; ``"auto"`` asks ``sharding.should_fsdp``."""
+    fsdp = opts.get("fsdp")
+    if fsdp is None:
+        return True
+    if fsdp == "auto":
+        return SH.should_fsdp(cfg, mesh)
+    return bool(fsdp)
+
+
+def _spec_record(specs: dict) -> dict:
+    return {p: list(spec) for p, spec in specs.items()}
+
+
+def _train_cell(cfg, shape, mesh, opts: dict) -> dict:
+    """The reference's train cell: FSDP (or ZeRO-0, ``opts["fsdp"]``),
+    float32 masters and gradients (bfloat16 with ``grads_bf16``), the
+    table replicated with ``replicate_embed``."""
     mb = _microbatches(cfg, shape, mesh.size)
+    fsdp = _fsdp(cfg, mesh, opts)
+    grads_bf16 = bool(opts.get("grads_bf16", False))
     params = _train_params(cfg)
-    pspecs = SH.param_specs(params, mesh)
+    pspecs = SH.param_specs(params, mesh, fsdp=fsdp,
+                            replicate_embed=opts.get("replicate_embed",
+                                                     False))
     batch = SP.train_batch_specs(cfg, shape)
     p_bytes = _most(params, pspecs, mesh)
+    grads = p_bytes if not grads_bf16 else _most(
+        tree_map(lambda t: t.to(torch.bfloat16), params), pspecs, mesh)
     out = {"params": p_bytes,
            "opt_state": 2 * p_bytes + 4,          # mu, nu, the counter
-           "grads": p_bytes,
+           "grads": grads,
            "batch": _most(batch, SH.batch_specs(batch, mesh), mesh)}
     traffic = FS.step_traffic(params, pspecs, mesh, microbatches=mb,
-                              cfg=cfg, batch=batch)
-    return {"fsdp": True, "microbatches": mb, "bytes_per_position": out,
+                              grads_bf16=grads_bf16, cfg=cfg, batch=batch)
+    return {"fsdp": fsdp, "microbatches": mb, "bytes_per_position": out,
+            "param_specs": _spec_record(pspecs),
             "step_traffic": {k.split(".", 1)[1]: v
                              for k, v in traffic.items()}}
 
 
-def _prefill_cell(cfg, shape, mesh) -> dict:
+def _serve_specs(params, mesh, opts: dict) -> dict:
+    """The serving cells' params specs: FSDP unless ``opts["fsdp"]`` is
+    False, as the reference's prefill and decode builders read it."""
+    return SH.param_specs(params, mesh,
+                          fsdp=opts.get("fsdp", True) is not False)
+
+
+def _prefill_cell(cfg, shape, mesh, opts: dict) -> dict:
     params = _serve_params(cfg)
-    pspecs = SH.param_specs(params, mesh)
+    pspecs = _serve_specs(params, mesh, opts)
     batch = SP.prefill_batch_specs(cfg, shape)
     bspecs = SH.batch_specs(batch, mesh)
     return {"bytes_per_position": {
         "params": _most(params, pspecs, mesh),
-        "batch": _most(batch, bspecs, mesh)}, "step_traffic": None}
+        "batch": _most(batch, bspecs, mesh)},
+        "param_specs": _spec_record(pspecs), "step_traffic": None}
 
 
-def _decode_cell(cfg, shape, mesh) -> dict:
+def _decode_cell(cfg, shape, mesh, opts: dict) -> dict:
     params = _serve_params(cfg)
-    pspecs = SH.param_specs(params, mesh)
+    pspecs = _serve_specs(params, mesh, opts)
     cache = M.init_cache(params, cfg, shape.global_batch, shape.seq_len)
     # the production default: S over 'model' (GQA head counts rarely
     # divide 16), S over the data axes too at batch 1
     cspecs = SH.cache_specs(cache, mesh,
                             shard_seq=shape.global_batch == 1,
-                            kv_layout="seq_model")
+                            kv_layout=opts.get("kv_layout", "seq_model"))
     tokens = {"tokens": SP.decode_token_specs(shape)}
     return {"bytes_per_position": {
         "params": _most(params, pspecs, mesh),
         "cache": _most(cache, cspecs, mesh),
         "batch": _most(tokens, SH.batch_specs(tokens, mesh), mesh)},
-        "step_traffic": None}
+        "param_specs": _spec_record(pspecs),
+        "cache_specs": _spec_record(cspecs), "step_traffic": None}
 
 
 def model_flops(cfg: ArchConfig, shape: ShapeConfig) -> float:
@@ -170,9 +221,20 @@ def model_flops(cfg: ArchConfig, shape: ShapeConfig) -> float:
 # --------------------------------------------------------------------------
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
-             quant: str | None = None, out_dir: str | None = None) -> dict:
-    """One cell's record (written to ``out_dir`` where given)."""
+             quant: str | None = None, out_dir: str | None = None,
+             layers_override: int | None = None, opts: dict | None = None,
+             tag: str = "") -> dict:
+    """One cell's record (written to ``out_dir`` where given), with the
+    reference's options (the module docstring)."""
+    opts = dict(opts or {})
     cfg = get_config(arch, quant=quant)
+    if opts.get("ssm_split") and cfg.ssm is not None:
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, fused_proj=False))
+    if opts.get("kv_int8"):
+        cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    if layers_override is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers_override)
     shape = get_shape(shape_name)
     mesh = make_production_mesh(multi_pod=multi_pod)
     record: dict = {
@@ -180,7 +242,9 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         "mesh": "x".join(str(n) for n in mesh.shape.values()),
         "axes": list(mesh.axes), "positions": mesh.size,
         "quant": quant or "float", "kind": shape.kind,
+        "layers_override": layers_override,
         "num_layers": cfg.num_layers,
+        "opts": opts, "tag": tag,
     }
     skip = cell_skip_reason(cfg, shape)
     if skip:
@@ -191,7 +255,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     by_kind = {"train": _train_cell, "prefill": _prefill_cell,
                 "decode": _decode_cell}
     t0 = time.monotonic()
-    record.update(by_kind[shape.kind](cfg, shape, mesh))
+    record.update(by_kind[shape.kind](cfg, shape, mesh, opts))
     total = sum(record["bytes_per_position"].values())
     record.update({
         "status": "ok",
@@ -208,8 +272,13 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
 
 
 def _cell_id(record: dict) -> str:
-    return (f"{record['arch']}__{record['shape']}__{record['mesh']}"
+    base = (f"{record['arch']}__{record['shape']}__{record['mesh']}"
             f"__{record['quant']}")
+    if record.get("layers_override"):
+        base += f"__L{record['layers_override']}"
+    if record.get("tag"):
+        base += f"__{record['tag']}"
+    return base
 
 
 def _save(record: dict, out_dir: str | None) -> None:
@@ -237,7 +306,25 @@ def main(argv=None) -> None:
     ap.add_argument("--quant", default=None,
                     choices=[None, "float", "binary_weight", "binary"])
     ap.add_argument("--out", default="experiments/dryrun_torch")
+    ap.add_argument("--fsdp", default=None, choices=["true", "false",
+                                                     "auto"])
+    ap.add_argument("--grads-bf16", action="store_true")
+    ap.add_argument("--replicate-embed", action="store_true")
+    ap.add_argument("--ssm-split", action="store_true")
+    ap.add_argument("--kv-int8", action="store_true")
+    ap.add_argument("--kv-layout", default=None,
+                    choices=["seq_model", "batch_heads"])
+    ap.add_argument("--layers", type=int, default=None)
+    ap.add_argument("--tag", default="")
     args = ap.parse_args(argv)
+    opts = {k: v for k, v in (
+        ("fsdp", {"true": True, "false": False, "auto": "auto"}.get(
+            args.fsdp)),
+        ("grads_bf16", args.grads_bf16 or None),
+        ("replicate_embed", args.replicate_embed or None),
+        ("ssm_split", args.ssm_split or None),
+        ("kv_int8", args.kv_int8 or None),
+        ("kv_layout", args.kv_layout)) if v is not None}
 
     if args.all:
         cells = [(a, s) for a in list_configs() for s in SHAPES]
@@ -249,7 +336,8 @@ def main(argv=None) -> None:
     for a, s in cells:
         try:
             run_cell(a, s, multi_pod=args.multi_pod, quant=args.quant,
-                     out_dir=args.out)
+                     out_dir=args.out, layers_override=args.layers,
+                     opts=opts, tag=args.tag)
         except Exception as e:  # noqa: BLE001 — report every cell's failure
             failures.append((a, s, repr(e)))
             print(f"[dryrun] {a} {s} FAILED: {e!r}")

@@ -207,12 +207,48 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int) -> dict:
     return {"table": randn(gen, (vocab, d), 0.02)}
 
 
-def embed(params: dict, tokens: torch.Tensor, dtype=torch.bfloat16
+def embed(params, tokens: torch.Tensor, dtype=torch.bfloat16
           ) -> torch.Tensor:
     """Rows of the table in ``dtype`` (the rows are gathered, then cast:
-    the same values as casting the table first)."""
+    the same values as casting the table first).  ``params`` may be a
+    :class:`Parallel` whose ``trees[j]["table"]`` is position j's slice
+    of the vocabulary, in vocabulary order (the sharded train step,
+    ``distributed/fsdp.py``): :func:`embed_parallel`."""
+    if isinstance(params, Parallel):
+        return embed_parallel(params, tokens, dtype)
     table = params["table"]
     return table[tokens.to(device=table.device, dtype=torch.int64)].to(dtype)
+
+
+def embed_parallel(par, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    """The lookup over the vocabulary slices of ``par``'s positions:
+    position j looks up the tokens that fall in its slice and writes zero
+    rows for the rest, and the positions' rows are summed on ``home`` in
+    ``dtype`` itself (``par.reduce(..., wide=False)``).  Exactly one
+    position holds a non-zero row for each token, so the sum is exact in
+    any dtype, and at bfloat16 it moves half float32's bytes.  The
+    backward gives each position the rows' gradient, which the lookup
+    adds into its own slice's rows only (zero for the tokens it does not
+    hold)."""
+    parts, lo = [], 0
+    for t, dev in zip(par.trees, par.devices):
+        table = t["table"]
+        n = table.shape[0]
+        tok = tokens.to(device=dev, dtype=torch.int64)
+        own = ((tok >= lo) & (tok < lo + n))[..., None]
+        rows = table[(tok - lo).clamp(0, n - 1)].to(dtype)
+        parts.append(torch.where(own, rows, torch.zeros(
+            (), dtype=dtype, device=dev)))
+        lo += n
+    return par.reduce(parts, wide=False)
+
+
+def embed_traffic(tokens: int, d: int, dtype) -> list:
+    """The traffic entries (:class:`Parallel`) of one
+    :func:`embed_parallel` of ``tokens`` ids into ``d``-wide rows of
+    ``dtype``: the sum of the positions' rows."""
+    return [("reduce", tokens * d, torch.empty((), dtype=dtype
+                                               ).element_size())]
 
 
 def unembed(params: dict, x: torch.Tensor, dtype=torch.bfloat16
@@ -260,7 +296,10 @@ class Parallel:
     ``apply_ffn``, ``apply_moe``, ``rglru_block_forward``) take one in a
     params dict's place, run each position on its slice and combine the
     positions through the three collectives below, which count their
-    traffic.
+    traffic.  The vocabulary-parallel embedding (:func:`embed`) and loss
+    (``models/model.py::loss_fn``) take one in the embedding's or the
+    head's node's place, each position's tree holding its vocabulary
+    slice.
 
     Each block module reckons one call's collectives from shapes
     (``parallel_traffic``): a list of (kind, elements, bytes an element)
@@ -288,10 +327,11 @@ class Parallel:
         gradients."""
         raise NotImplementedError
 
-    def reduce(self, parts: list) -> torch.Tensor:
+    def reduce(self, parts: list, wide: bool = True) -> torch.Tensor:
         """The sum over positions of ``parts`` (one a position) on
         ``home``, in float32 (float64 parts in float64): row-parallel
-        partial products."""
+        partial products.  ``wide`` False: in the parts' own dtype, for
+        sums with one non-zero term an element (exact in any dtype)."""
         raise NotImplementedError
 
     def gather(self, parts: list, dim: int = -1) -> torch.Tensor:
@@ -364,8 +404,10 @@ def remat(fn, on: bool):
     differentiates (serving) keeps nothing anyway.  The values do not
     change.  With ``on``, :class:`Deferred` leaves of the arguments are
     made inside the call (:func:`materialize`), again in the recompute;
-    where one asks for ``full_recompute`` the recompute runs the whole
-    call (``torch.utils.checkpoint``'s early stop off)."""
+    where one asks for ``full_recompute``, or a :class:`Parallel` is
+    among the arguments (its collectives count every pass), the
+    recompute runs the whole call (``torch.utils.checkpoint``'s early
+    stop off)."""
     if not on:
         return fn
 
@@ -378,8 +420,9 @@ def remat(fn, on: bool):
         if torch.is_grad_enabled() and any(
                 isinstance(t, (torch.Tensor, Deferred)) and t.requires_grad
                 for t in leaves):
-            whole = any(isinstance(t, Deferred) and t.full_recompute
-                        for t in leaves)
+            whole = any(isinstance(t, Parallel) or (
+                isinstance(t, Deferred) and t.full_recompute)
+                for t in leaves)
             with set_checkpoint_early_stop(not whole):
                 return checkpoint(body, *args, use_reentrant=False)
         return body(*args)

@@ -100,6 +100,58 @@ def forward(params: dict, cfg, batch: dict, *, remat: bool = True
     return TF.stack_forward(params["stack"], cfg, x, positions, remat=remat)
 
 
+def loss_chunks(s: int) -> tuple[int, int]:
+    """(rows a chunk, chunks) of :func:`loss_fn` over a sequence of
+    ``s``."""
+    chunk = min(LOSS_CHUNK, s)
+    return chunk, -(-s // chunk)
+
+
+def _vocab_parallel_nll(par, params: dict, cfg, xs: torch.Tensor,
+                        ls: torch.Tensor):
+    """(log-sum-exp, target logit), float32 (B, chunk), of one chunk over
+    the vocabulary slices of ``par`` (a ``common.Parallel``: the tied
+    table's slices, or the untied head's column slices).  The normed
+    hidden state is fanned out to the positions (``par.fan``: float32
+    copies, whose float32 partial gradients are summed once); position j
+    makes its columns of the logits (the tied product on its table slice,
+    or its column slice of the head, as ``linear.apply_linear`` with
+    ``column``), softcapped per element, and reduces them to a float32
+    partial log-sum-exp and the target logit of the labels in its slice
+    (0 for the rest, and for labels of -1).  The partials are gathered
+    over ``model`` on ``home`` and combined by one more log-sum-exp; the
+    target logits are summed, one non-zero term a row.  The (B, chunk, V)
+    logits never exist."""
+    x = C.apply_norm(cfg.norm_type, params["ln_out"], xs)
+    dt = cfg.activation_dtype
+    lses, tgts, lo = [], [], 0
+    for t, xj, dev in zip(par.trees, par.fan(x), par.devices):
+        if cfg.tie_embeddings:
+            logits = LN.share_product(xj, t["table"].T, dt)
+        else:
+            logits = LN.apply_linear(t, xj, cfg.quant, dtype=dt,
+                                     column=True)
+        logits = C.softcap(logits, cfg.logit_softcap).to(torch.float32)
+        n = logits.shape[-1]
+        lj = ls.to(dev)
+        own = (lj >= lo) & (lj < lo + n)
+        idx = (lj - lo).clamp(0, n - 1).to(torch.int64)[..., None]
+        tgts.append(torch.where(own, torch.gather(logits, -1, idx)[..., 0],
+                                0.0))
+        lses.append(torch.logsumexp(logits, dim=-1, keepdim=True))
+        lo += n
+    return torch.logsumexp(par.gather(lses), dim=-1), par.reduce(tgts)
+
+
+def loss_traffic(cfg, rows: int) -> list:
+    """The traffic entries (``common.Parallel``) of one vocabulary-
+    parallel loss chunk of ``rows`` (batch x chunk) rows: the normed
+    hidden state fanned out, the float32 partial log-sum-exps gathered,
+    the float32 target logits summed."""
+    return (C.fan_traffic(rows * cfg.d_model, cfg.activation_dtype)
+            + [("gather", rows, 4), ("reduce", rows, 4)])
+
+
 def loss_fn(params: dict, cfg, batch: dict) -> torch.Tensor:
     """Next-token cross-entropy, a float32 scalar: the mean over the
     labels that are >= 0 (``batch["labels"]``, (B, S)).
@@ -110,29 +162,39 @@ def loss_fn(params: dict, cfg, batch: dict) -> torch.Tensor:
     made, reduced to its summed loss and valid count, and dropped.  Under
     autograd each chunk runs under ``torch.utils.checkpoint``, so the
     backward pass remakes its logits too: (B, S, V) logits never exist.
+
+    Where the head (the tied table, or the untied head's weight) is a
+    ``common.Parallel`` split over the vocabulary (the sharded train
+    step), each chunk runs vocabulary-parallel
+    (:func:`_vocab_parallel_nll`), recomputed whole (``common.remat``),
+    so its collectives run in the forward and again in the recompute.
     """
     x = forward(params, cfg, batch)
     labels = batch["labels"].to(x.device)
     b, s = labels.shape
-    chunk = min(LOSS_CHUNK, s)
-    n = -(-s // chunk)
+    chunk, n = loss_chunks(s)
     x = F.pad(x, (0, 0, 0, n * chunk - s))
     labels = F.pad(labels, (0, n * chunk - s), value=-1)
+    head = params["embed"] if cfg.tie_embeddings else params.get("head")
 
-    def chunk_loss(xs, ls):
-        logits = _logits(params, cfg, xs).to(torch.float32)
-        lse = torch.logsumexp(logits, dim=-1)
-        idx = ls.clamp(min=0).to(torch.int64)[..., None]
-        tgt = torch.gather(logits, -1, idx)[..., 0]
+    def chunk_loss(xs, ls, par):
+        if par is not None:
+            lse, tgt = _vocab_parallel_nll(par, params, cfg, xs, ls)
+        else:
+            logits = _logits(params, cfg, xs).to(torch.float32)
+            lse = torch.logsumexp(logits, dim=-1)
+            idx = ls.clamp(min=0).to(torch.int64)[..., None]
+            tgt = torch.gather(logits, -1, idx)[..., 0]
         valid = (ls >= 0).to(torch.float32)
         return ((lse - tgt) * valid).sum(), valid.sum()
 
     body = C.remat(chunk_loss, True)
+    par = head if isinstance(head, C.Parallel) else None
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n):
         rows = slice(i * chunk, (i + 1) * chunk)
-        nll, valid = body(x[:, rows], labels[:, rows])
+        nll, valid = body(x[:, rows], labels[:, rows], par)
         tot, cnt = tot + nll, cnt + valid
     return tot / torch.clamp(cnt, min=1.0)
 

@@ -165,10 +165,122 @@ def _out(params: dict, cfg, y: torch.Tensor, z: torch.Tensor):
     return LN.apply_linear(proj, y, cfg.quant, dtype=dt_)
 
 
-def mamba2_forward(params: dict, cfg, u: torch.Tensor, *,
+def _scan(cfg, x, b, c, dt, dt_bias, a_log, d_skip, init_state=None):
+    """The selective scan of ``x`` (B, S, H, P) over the heads of
+    ``dt_bias``, ``a_log`` and ``d_skip`` (H,): dt (B, S, H) through
+    softplus, the SSD scan on whole chunks (the sequence zero-padded),
+    plus the skip.  Returns (y (B, S, H, P) float32, final state)."""
+    s = cfg.ssm
+    slen = x.shape[1]
+    dt = F.softplus(dt.to(torch.float32) + dt_bias)
+    a = -torch.exp(a_log)                              # (H,), negative
+    pad = (-slen) % s.chunk
+    if pad:
+        x, b, c, dt = (C.pad_seq(t, slen + pad) for t in (x, b, c, dt))
+    y, state = ssd_chunked(x * dt[..., None], a * dt, b, c, s.chunk,
+                           init_state=init_state)
+    y = y[:, :slen]
+    x = x[:, :slen]
+    return y + x.to(torch.float32) * d_skip[:, None], state
+
+
+def heads_split(cfg, m: int) -> bool:
+    """Whether the block splits over ``m`` model positions on whole
+    units: the split form (the fused one interleaves five blocks on one
+    axis), ``m`` dividing the heads, and each position's heads reading
+    whole groups of B and C, or all one group (``m`` a multiple of the
+    groups, or dividing them)."""
+    s, _, nheads, _ = _dims(cfg)
+    return (not s.fused_proj and nheads % m == 0
+            and (s.ngroups % m == 0 or m % s.ngroups == 0))
+
+
+def parallel_traffic(cfg, tokens: int, dtype) -> list:
+    """The traffic entries (``common.Parallel``) of one tensor-parallel
+    :func:`mamba2_forward` on ``tokens`` rows of ``dtype``: the input
+    fanned out, B, C (float32) and dt fanned out, the norm's float32
+    partial sums of squares summed and fanned back, the partial outputs
+    of ``out_proj_tp`` summed."""
+    s, _, nheads, _ = _dims(cfg)
+    d = cfg.d_model
+    gn = s.ngroups * s.d_state
+    return (C.fan_traffic(tokens * d, dtype)
+            + 2 * C.fan_traffic(tokens * gn, torch.float32)
+            + C.fan_traffic(tokens * nheads, dtype)
+            + [("reduce", tokens, 4)]
+            + C.fan_traffic(tokens, torch.float32)
+            + LN.row_parallel_traffic(cfg.quant, tokens * d, d))
+
+
+def _forward_parallel(par, cfg, u: torch.Tensor) -> torch.Tensor:
+    """The split form over the positions of ``par`` (a
+    ``common.Parallel``, :func:`heads_split`): position j holds the
+    columns of ``z_proj`` and ``x_proj``, the conv channels of x, the
+    ``norm_tp`` scale and the rows of ``out_proj_tp`` of its heads.
+    ``dt_proj``, ``b_proj``, ``c_proj``, the B/C convs, ``A_log``, ``D``
+    and ``dt_bias`` are whole at every position (the rules replicate
+    them over ``model``): B, C and dt are made once, at the first
+    position (``home``) from its copy of the input, and fanned out; each
+    position slices dt, ``A_log``, ``D`` and ``dt_bias`` to its heads and
+    runs the SSD scan on them (the scan is per head).  The gated RMSNorm
+    spans the whole d_inner: the positions' float32 sums of squares are
+    summed over ``model`` and fanned back before each scales its
+    channels.  ``out_proj_tp`` is row-parallel
+    (``linear.apply_row_parallel``)."""
+    s, d_inner, nheads, _ = _dims(cfg)
+    dt_ = cfg.activation_dtype
+    bsz, slen, _ = u.shape
+    us = par.fan(u)
+    whole = par.trees[0]
+    dt = LN.apply_linear(whole["dt_proj"], us[0], cfg.quant, dtype=dt_,
+                         column=True)
+    bc = []
+    for name in ("b", "c"):
+        t = LN.apply_linear(whole[f"{name}_proj"], us[0], cfg.quant,
+                            dtype=dt_, column=True)
+        t, _ = C.causal_conv1d(t.to(torch.float32),
+                               whole[f"conv_w_{name}"],
+                               whole[f"conv_b_{name}"])
+        bc.append(F.silu(t).reshape(bsz, slen, s.ngroups, s.d_state))
+    bs, cs, dts = par.fan(bc[0]), par.fan(bc[1]), par.fan(dt)
+    hl = nheads // par.size
+    hpg = nheads // s.ngroups
+    ys = []
+    for j, (t, uj) in enumerate(zip(par.trees, us)):
+        heads = slice(j * hl, (j + 1) * hl)
+        groups = slice(j * hl // hpg, -(-(j + 1) * hl // hpg))
+        z = LN.apply_linear(t["z_proj"], uj, cfg.quant, dtype=dt_,
+                            column=True)
+        x = LN.apply_linear(t["x_proj"], uj, cfg.quant, dtype=dt_,
+                            column=True)
+        x, _ = C.causal_conv1d(x.to(torch.float32), t["conv_w_x"],
+                               t["conv_b_x"])
+        x = F.silu(x).reshape(bsz, slen, hl, s.head_dim)
+        y, _ = _scan(cfg, x, bs[j][:, :, groups], cs[j][:, :, groups],
+                     dts[j][..., heads], t["dt_bias"][heads],
+                     t["A_log"][heads], t["D"][heads])
+        y = y.reshape(bsz, slen, hl * s.head_dim) * F.silu(
+            z.to(torch.float32))
+        ys.append(y.to(dt_).to(torch.float32))
+    sq = par.fan(par.reduce([(y * y).sum(-1, keepdim=True) for y in ys]))
+    outs = [(y * torch.rsqrt(q / d_inner + 1e-6)
+             * (1.0 + t["norm_tp"]["scale"])).to(dt_)
+            for y, q, t in zip(ys, sq, par.trees)]
+    return LN.apply_row_parallel(par, [t["out_proj_tp"] for t in par.trees],
+                                 outs, cfg.quant, dtype=dt_)
+
+
+def mamba2_forward(params, cfg, u: torch.Tensor, *,
                    init_cache: dict | None = None,
                    return_cache: bool = False):
-    """Full-sequence forward.  u: (B, S, D) -> (B, S, D)."""
+    """Full-sequence forward.  u: (B, S, D) -> (B, S, D).  ``params`` may
+    be a ``common.Parallel`` (the split form over ``model``,
+    :func:`heads_split`), without a cache."""
+    if isinstance(params, C.Parallel):
+        if init_cache is not None or return_cache:
+            raise ValueError("the tensor-parallel Mamba-2 block is the "
+                             "train step's; prefill and decode run whole")
+        return _forward_parallel(params, cfg, u)
     s, d_inner, nheads, conv_dim = _dims(cfg)
     bsz, slen, _ = u.shape
     z, x, b, c, dt, conv_caches = _project_conv_full(params, cfg, u,
@@ -176,17 +288,9 @@ def mamba2_forward(params: dict, cfg, u: torch.Tensor, *,
     x = x.reshape(bsz, slen, nheads, s.head_dim)
     b = b.reshape(bsz, slen, s.ngroups, s.d_state)
     c = c.reshape(bsz, slen, s.ngroups, s.d_state)
-    dt = F.softplus(dt.to(torch.float32) + params["dt_bias"])
-    a = -torch.exp(params["A_log"])                    # (H,), negative
-    pad = (-slen) % s.chunk
-    if pad:
-        x, b, c, dt = (C.pad_seq(t, slen + pad) for t in (x, b, c, dt))
     ssm_init = init_cache["state"] if init_cache else None
-    y, state = ssd_chunked(x * dt[..., None], a * dt, b, c, s.chunk,
-                           init_state=ssm_init)
-    y = y[:, :slen]
-    x = x[:, :slen]
-    y = y + x.to(torch.float32) * params["D"][:, None]
+    y, state = _scan(cfg, x, b, c, dt, params["dt_bias"], params["A_log"],
+                     params["D"], ssm_init)
     out = _out(params, cfg, y.reshape(bsz, slen, d_inner), z)
     if return_cache:
         return out, {**conv_caches, "state": state}

@@ -20,8 +20,10 @@ the batch by ``sharding.batch_specs``.  Each data slice runs its forward
 and backward in turn, FSDP over the data axes and tensor-parallel over
 ``model``: a block that splits on whole units (``fsdp.split_blocks``)
 runs at each model position on that position's slices, inside the block
-functions, every other weight is gathered whole per layer group, and
-each gradient is reduced to the copies that hold its slices
+functions, the embedding and the loss's logits run vocabulary-parallel
+where the table's and the head's vocabulary split over ``model``
+(``fsdp.vocab_split``), every other weight is gathered whole per layer
+group, and each gradient is reduced to the copies that hold its slices
 (``distributed/fsdp.py``, which counts every gather and reduce); the loss
 is the mean of the data slices' and microbatches' losses, the gradients'
 norm and the compression scale sum over whole leaves, and AdamW and

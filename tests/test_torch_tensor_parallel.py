@@ -30,8 +30,8 @@ from repro_torch.models import moe as MOE
 from repro_torch.tree import leaves_with_path
 from repro_torch.train import trainer as TTR
 
-from _tensor_parallel import MESHES, check_no_whole_model_gather, \
-    one_thread, tp_step
+from _tensor_parallel import MESHES, block_share, \
+    check_no_whole_model_gather, one_thread, tp_step
 from _train import assert_step_close, batch_np, configs, states, tbatch, \
     train_configs
 
@@ -50,8 +50,9 @@ def test_tp_step_equals_the_reference(name, mode, shape):
     jout, tout, lr, got, want, seen = tp_step(name, mode, shape)
     assert_step_close(jout, tout, lr)
     assert got == want
-    assert got["sharding.tp_reduces"] > 0
-    assert got["sharding.tp_grad_reduces"] > 0
+    blocks = block_share(name, shape, got, mode)
+    assert blocks["sharding.tp_reduces"] > 0
+    assert blocks["sharding.tp_grad_reduces"] > 0
     check_no_whole_model_gather(name, shape, seen)
 
 

@@ -7,16 +7,20 @@ the dense and MoE configs, and says what is held).
 Reduced recurrentgemma-9b is MQA (1 KV head): its attention falls back
 to the whole-weight gather on every mesh, while its RG-LRU width (64)
 and FFN (128) split over 2 and 4 positions; the conv output is gathered
-over ``model`` (``sharding.tp_gathers``).  Reduced whisper-base (4 query
-heads over 2 KV heads) splits its encoder's and decoder's attention, the
-decoder's cross-attention (the encoder output fanned out to the
-positions) and both FFNs over 2 positions; over 4 only the FFNs.
+over ``model`` (``sharding.tp_gathers``), beside the loss's partial
+log-sum-exps, which every mesh here gathers twice a chunk (both
+vocabularies of 256 split over 2 and 4 positions): the blocks' share
+is the count less the vocabulary's (``_tensor_parallel.block_share``).
+Reduced whisper-base (4 query heads over 2 KV heads) splits its
+encoder's and decoder's attention, the decoder's cross-attention (the
+encoder output fanned out to the positions) and both FFNs over 2
+positions; over 4 only the FFNs.
 """
 import pytest
 import torch
 
-from _tensor_parallel import MESHES, check_no_whole_model_gather, \
-    one_thread, tp_step
+from _tensor_parallel import MESHES, block_share, \
+    check_no_whole_model_gather, one_thread, tp_step
 from _train import assert_step_close
 
 
@@ -33,6 +37,9 @@ def test_tp_step_equals_the_reference(name, shape):
     jout, tout, lr, got, want, seen = tp_step(name, "float", shape)
     assert_step_close(jout, tout, lr)
     assert got == want
-    assert got["sharding.tp_reduces"] > 0
-    assert (got["sharding.tp_gathers"] > 0) == (name == "recurrentgemma-9b")
+    blocks = block_share(name, shape, got)
+    assert blocks["sharding.tp_reduces"] > 0
+    assert blocks["sharding.tp_grad_reduces"] > 0
+    assert (blocks["sharding.tp_gathers"] > 0) == \
+        (name == "recurrentgemma-9b")
     check_no_whole_model_gather(name, shape, seen)

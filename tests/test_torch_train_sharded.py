@@ -102,11 +102,17 @@ def test_compress_and_microbatches(shape):
 def test_traffic_of_a_known_leaf():
     """The reckoning by hand for the (2, 2) FSDP step of reduced
     starcoder2-3b's head (64 x 256, spec (data, model), 4 slices of 4096
-    floats): each data slice gathers it once a microbatch (3 slices it
-    lacks, 49152 bytes) and reduces its gradient to the 3 copies its first
-    position does not hold; the layer norms' scales (spec ()) are one
-    shared copy, neither gathered nor reduced.  The tree has no layered
-    block, so no tensor-parallel traffic."""
+    floats), which runs vocabulary-parallel: each of the 4 positions
+    gathers its 128 columns over data once a microbatch (the one slice it
+    lacks, 16384 bytes) and reduces its gradient to that slice's copy;
+    the layer norms' scales (spec ()) are one shared copy, neither
+    gathered nor reduced.  Activations: each data slice (2 rows of 16,
+    one 16-row loss chunk) fans its normed hidden state (32 x 64 float32)
+    out to the other model position and sums its partial gradient back
+    once (8192 bytes), and gathers the float32 partial log-sum-exps and
+    sums the target logits (32 floats, 128 bytes each) in the forward
+    and again in the recompute.  The whole-leaf gather it replaces moved
+    3 slices a data slice and reduced to 3 copies."""
     mesh = TMESH.make_host_mesh(2, 2, device="cpu")
     head = {"head": {"w": torch.empty((64, 256), device="meta")},
             "ln_out": {"scale": torch.empty((64,), device="meta")}}
@@ -114,16 +120,23 @@ def test_traffic_of_a_known_leaf():
     assert specs == {"head/w": ("data", "model"), "ln_out/scale": ()}
     _, tcfg = configs("starcoder2-3b", "float")
     nb = tbatch(batch_np(tcfg, b=ROWS))
-    none = dict.fromkeys(TFS.TP_COUNTERS, 0)
     t = TFS.step_traffic(head, specs, mesh, cfg=tcfg, batch=nb)
-    assert t == {"sharding.gathers": 2, "sharding.gathered_bytes": 2 * 49152,
-                 "sharding.reduces": 6, "sharding.reduced_bytes": 2 * 49152,
-                 "sharding.partial_sums": 3, **none}
+    assert t == {"sharding.gathers": 4, "sharding.gathered_bytes": 4 * 16384,
+                 "sharding.reduces": 4, "sharding.reduced_bytes": 4 * 16384,
+                 "sharding.partial_sums": 3,
+                 "sharding.tp_reduces": 4, "sharding.tp_reduced_bytes": 512,
+                 "sharding.tp_grad_reduces": 2,
+                 "sharding.tp_grad_reduced_bytes": 2 * 8192,
+                 "sharding.tp_gathers": 4, "sharding.tp_gathered_bytes": 512}
     t2 = TFS.step_traffic(head, specs, mesh, cfg=tcfg, batch=nb,
                           microbatches=2, compress=True, grads_bf16=True)
-    assert t2 == {"sharding.gathers": 4, "sharding.gathered_bytes": 98304,
-                  "sharding.reduces": 12, "sharding.reduced_bytes": 98304,
-                  "sharding.partial_sums": 6, **none}
+    assert t2 == {"sharding.gathers": 8, "sharding.gathered_bytes": 65536,
+                  "sharding.reduces": 8, "sharding.reduced_bytes": 65536,
+                  "sharding.partial_sums": 6,
+                  "sharding.tp_reduces": 8, "sharding.tp_reduced_bytes": 512,
+                  "sharding.tp_grad_reduces": 4,
+                  "sharding.tp_grad_reduced_bytes": 4 * 4096,
+                  "sharding.tp_gathers": 8, "sharding.tp_gathered_bytes": 512}
 
 
 def test_shared_copy_updated_once():
