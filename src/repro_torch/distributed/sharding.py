@@ -702,7 +702,11 @@ class ShardedForward:
     device (the caller reading a data-sharded output); that is not
     counted as a gather.  With tracing on, a call is split into the
     spans ``sharded.dispatch`` (every position's launches enqueued) and
-    ``sharded.block`` (waiting for the cards).
+    ``sharded.block`` (waiting for the cards).  Those two go to
+    ``telemetry``; the layer spans (``model.*``, ``model.input`` among
+    them) and the ``sharding.gather`` spans always go to
+    ``telemetry.default()``, as in the unsharded forward
+    (``models/cnn.py``).
     """
 
     def __init__(self, placed: Any, shard_plan: dict, mesh: Mesh, kind: str,
@@ -731,23 +735,30 @@ class ShardedForward:
                                if ax != "model")] for c in coords]
 
     def _run(self, x, logits: bool) -> torch.Tensor:
-        x = _cnn.check_input(self.kind, self._input_shape, x)
-        if x.shape[0] % self.batch_multiple:
-            raise ValueError(f"batch {x.shape[0]} is not a multiple of the "
-                             f"mesh's data size {self.batch_multiple}")
-        rows = x.shape[0] // self.batch_multiple
-        copies, xs = {}, []
-        for d, dev in zip(self._data_index, self.mesh.devices):
-            if (d, dev) not in copies:
-                copies[d, dev] = x[d * rows:(d + 1) * rows].to(dev)
-            xs.append(copies[d, dev])
+        tr = _telemetry.default().tracer
+        with tr.span(_cnn.SPAN_INPUT):
+            x = _cnn.check_input(self.kind, self._input_shape, x)
+            if x.shape[0] % self.batch_multiple:
+                raise ValueError(f"batch {x.shape[0]} is not a multiple of "
+                                 f"the mesh's data size "
+                                 f"{self.batch_multiple}")
+            rows = x.shape[0] // self.batch_multiple
+            copies, xs = {}, []
+            for d, dev in zip(self._data_index, self.mesh.devices):
+                if (d, dev) not in copies:
+                    copies[d, dev] = x[d * rows:(d + 1) * rows].to(dev)
+                xs.append(copies[d, dev])
         forward = (_cnn.bcnn_forward_positions if self.kind == "bcnn"
                    else _cnn.bmlp_forward_positions)
         zs = forward(self._trees, xs, self._peers, self.shard_plan,
                      backend=self._backend, dense_stack=self._dense_stack)
         out = self.mesh.devices[0]
-        parts = [_cnn.apply_output_batchnorm(self._trees[p], zs[p])
-                 if logits else zs[p] for p in self._firsts]
+        if logits:
+            with tr.span(_cnn.SPAN_OUTPUT[self.kind]):
+                parts = [_cnn.apply_output_batchnorm(self._trees[p], zs[p])
+                         for p in self._firsts]
+        else:
+            parts = [zs[p] for p in self._firsts]
         return torch.cat([z.to(out) for z in parts])
 
     def _traced(self, x, logits: bool) -> torch.Tensor:

@@ -15,6 +15,13 @@ Each network has:
 
 The packed forward equals the float one exactly on the integer dots and
 to float round-off on the final BN logits.
+
+Layer spans: the packed forwards open the reference's ``model.bcnn.*`` /
+``model.bmlp.*`` spans, plus ``model.input`` around the input's check
+and copy, on ``telemetry.default()``'s tracer, once per forward at run
+time (the reference opens them once per trace).  While a
+``torch.profiler`` session records they are ``record_function`` ranges
+on the kernels' clock; with neither, each costs the tracer's no-op.
 """
 from __future__ import annotations
 
@@ -48,6 +55,16 @@ def _check_device(device) -> torch.device:
         raise RuntimeError("no CUDA device: pass device='cpu' to run the "
                            "port on the CPU")
     return device
+
+
+# The layer spans that ``ShardedForward`` opens too (see the module
+# docstring); ``model.input`` is the port's own.
+SPAN_INPUT = "model.input"
+SPAN_OUTPUT = {"bcnn": "model.bcnn.output", "bmlp": "model.bmlp.output"}
+
+
+def _tracer():
+    return telemetry.default().tracer
 
 
 def check_dense_stack(dense_stack: str) -> None:
@@ -195,17 +212,24 @@ def bmlp_forward_positions(trees: list, xs: list, peers: list,
     n = len(trees[0]["layers"])
     if layer_shards[-1] != 1:
         raise ValueError("the output layer must stay replicated")
-    hs = _seam([L.apply_bn_sign_folded_packed(
-        t["folded"][0], L.apply_bitplane_dense_packed(t["layers"][0], x,
-                                                      backend=backend),
-        backend=backend) for t, x in zip(trees, xs)], peers, layer_shards[0])
-    hs = _dense_hidden_stack([t["layers"][1:n - 1] for t in trees],
-                             [t["folded"][1:] for t in trees], hs, peers,
-                             layer_shards[1:n - 1], backend=backend,
-                             dense_stack=dense_stack)
-    return [L.apply_binary_dense_prepacked(t["layers"][n - 1], h,
-                                           backend=backend)
-            for t, h in zip(trees, hs)]
+    tr = _tracer()
+    with tr.span("model.bmlp.bitplane_dense"):
+        hs = _seam([L.apply_bn_sign_folded_packed(
+            t["folded"][0], L.apply_bitplane_dense_packed(
+                t["layers"][0], x, backend=backend),
+            backend=backend) for t, x in zip(trees, xs)], peers,
+            layer_shards[0])
+    # an argument only where the tracer records it: none on the off path
+    with (tr.span("model.bmlp.dense_stack", layers=n - 2) if tr.enabled
+          else tr.span("model.bmlp.dense_stack")):
+        hs = _dense_hidden_stack([t["layers"][1:n - 1] for t in trees],
+                                 [t["folded"][1:] for t in trees], hs, peers,
+                                 layer_shards[1:n - 1], backend=backend,
+                                 dense_stack=dense_stack)
+    with tr.span(SPAN_OUTPUT["bmlp"]):
+        return [L.apply_binary_dense_prepacked(t["layers"][n - 1], h,
+                                               backend=backend)
+                for t, h in zip(trees, hs)]
 
 
 def bmlp_forward_packed_int(packed: dict, x_uint8: torch.Tensor, *,
@@ -226,7 +250,8 @@ def bmlp_forward_packed(packed: dict, x_uint8: torch.Tensor, *,
     ``dense_stack`` as in :func:`bcnn_forward_packed`."""
     z = bmlp_forward_packed_int(packed, x_uint8, backend=backend,
                                 dense_stack=dense_stack)
-    return apply_output_batchnorm(packed, z)
+    with _tracer().span(SPAN_OUTPUT["bmlp"]):
+        return apply_output_batchnorm(packed, z)
 
 
 # ---------------------------------------------------------------------------
@@ -383,20 +408,27 @@ def bcnn_forward_positions(trees: list, xs: list, peers: list,
             h = L.maxpool2d_packed(h, t["pool_masks"][i])
         return h
 
-    hs = _seam([stage0(t, x) for t, x in zip(trees, xs)], peers,
-               conv_shards[0])
+    tr = _tracer()
+    with tr.span("model.bcnn.bitplane_conv"):
+        hs = _seam([stage0(t, x) for t, x in zip(trees, xs)], peers,
+                   conv_shards[0])
     for i in range(1, len(spec.stages)):
-        hs = _seam([stage(i, t, h) for t, h in zip(trees, hs)], peers,
-                   conv_shards[i])
+        with (tr.span("model.bcnn.conv_stage", stage=i) if tr.enabled
+              else tr.span("model.bcnn.conv_stage")):
+            hs = _seam([stage(i, t, h) for t, h in zip(trees, hs)], peers,
+                       conv_shards[i])
     hs = [h.reshape(h.shape[0], -1) for h in hs]   # packed (B, fh*fw*Cw)
     n = len(trees[0]["denses"])
-    hs = _dense_hidden_stack([t["denses"][:n - 1] for t in trees],
-                             [t["folded_dense"] for t in trees], hs, peers,
-                             dense_shards[:n - 1], backend=backend,
-                             dense_stack=dense_stack)
-    return [L.apply_binary_dense_prepacked(t["denses"][n - 1], h,
-                                           backend=backend)
-            for t, h in zip(trees, hs)]
+    with (tr.span("model.bcnn.dense_stack", layers=n - 1) if tr.enabled
+          else tr.span("model.bcnn.dense_stack")):
+        hs = _dense_hidden_stack([t["denses"][:n - 1] for t in trees],
+                                 [t["folded_dense"] for t in trees], hs,
+                                 peers, dense_shards[:n - 1],
+                                 backend=backend, dense_stack=dense_stack)
+    with tr.span(SPAN_OUTPUT["bcnn"]):
+        return [L.apply_binary_dense_prepacked(t["denses"][n - 1], h,
+                                               backend=backend)
+                for t, h in zip(trees, hs)]
 
 
 def bcnn_forward_packed_int(packed: dict, x_uint8: torch.Tensor, *,
@@ -421,7 +453,8 @@ def bcnn_forward_packed(packed: dict, x_uint8: torch.Tensor, *,
     """
     z = bcnn_forward_packed_int(packed, x_uint8, backend=backend,
                                 dense_stack=dense_stack)
-    return apply_output_batchnorm(packed, z)
+    with _tracer().span(SPAN_OUTPUT["bcnn"]):
+        return apply_output_batchnorm(packed, z)
 
 
 def packed_kind(packed: dict) -> str:
@@ -535,6 +568,7 @@ def make_packed_forward(packed: dict, *, backend: str = "auto",
                    else bmlp_forward_packed)
 
     def fwd(x) -> torch.Tensor:
-        return forward(packed, check_input(kind, input_shape, x, device),
-                       backend=backend, dense_stack=dense_stack)
+        with _tracer().span(SPAN_INPUT):
+            x = check_input(kind, input_shape, x, device)
+        return forward(packed, x, backend=backend, dense_stack=dense_stack)
     return fwd

@@ -13,8 +13,15 @@ Design points:
 
 * **Near-zero cost when disabled** — ``span()`` returns one shared
   no-op context manager without allocating; the only work on the
-  disabled path is an attribute check.  The serving layer leaves its
-  tracer disabled by default.
+  disabled path is an attribute check and one read of the profiler's
+  state.  The serving layer leaves its tracer disabled by default.
+* **Seen by ``torch.profiler``** — while a profiler session records,
+  ``span()`` also opens a ``torch.profiler.record_function`` range for
+  its body, enabled tracer or not: the span lands in the profiler's
+  trace as a ``user_annotation`` event on the kernels' clock, and Kineto
+  links every kernel to the runtime call that launched inside it.  The
+  session is the switch; ``add_complete`` and ``instant`` stay in this
+  buffer only (a past interval cannot be opened in the profiler).
 * **Nestable** — spans are emitted as Chrome ``"ph": "X"`` (complete)
   events with microsecond ``ts``/``dur``; Perfetto reconstructs nesting
   per thread from the timestamps, so plain ``with`` nesting renders as
@@ -27,8 +34,10 @@ Design points:
   serving queue uses it for per-flush queue-wait spans (submit time →
   flush start) without holding a context manager open across calls.
 
-The wall clock is ``time.perf_counter_ns`` (injectable for tests) and
-is independent of any simulated serving clock.
+The buffer's clock is ``time.perf_counter_ns`` (injectable for tests)
+and is independent of any simulated serving clock; it is not the
+profiler's, which stamps the wall clock from its trace's base time, so
+an exported buffer cannot be laid over a profiler trace.
 """
 from __future__ import annotations
 
@@ -36,6 +45,11 @@ import json
 import threading
 import time
 from typing import Callable
+
+import torch
+
+#: True while a ``torch.profiler`` session records (0.1 us a call)
+_profiling = torch._C._autograd._profiler_enabled
 
 
 class _NoopSpan:
@@ -54,20 +68,27 @@ _NOOP = _NoopSpan()
 
 
 class _Span:
-    __slots__ = ("_tracer", "_name", "_args", "_t0")
+    __slots__ = ("_tracer", "_name", "_args", "_t0", "_range")
 
-    def __init__(self, tracer: "Tracer", name: str, args: dict):
+    def __init__(self, tracer: "Tracer", name: str, args: dict,
+                 profiled: bool):
         self._tracer = tracer
         self._name = name
         self._args = args
+        self._range = (torch.profiler.record_function(name) if profiled
+                       else None)
 
     def __enter__(self):
+        if self._range is not None:
+            self._range.__enter__()
         self._t0 = self._tracer._clock()
         return self
 
     def __exit__(self, *exc):
         self._tracer.add_complete(self._name, self._t0,
                                   self._tracer._clock(), **self._args)
+        if self._range is not None:
+            self._range.__exit__(*exc)
         return False
 
 
@@ -96,11 +117,13 @@ class Tracer:
         return self._clock()
 
     def span(self, name: str, **args):
-        """Context manager timing its body.  Disabled tracer: a shared
-        no-op (near-zero cost)."""
+        """Context manager timing its body, and a ``record_function``
+        range while a profiler session records.  Disabled tracer and no
+        profiler: a shared no-op (near-zero cost)."""
         if not self.enabled:
-            return _NOOP
-        return _Span(self, name, args)
+            return torch.profiler.record_function(name) if _profiling() \
+                else _NOOP
+        return _Span(self, name, args, _profiling())
 
     def add_complete(self, name: str, t0_ns: int, t1_ns: int,
                      **args) -> None:
