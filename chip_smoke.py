@@ -441,9 +441,10 @@ def bcnn_calls(packed, x, dense_stack):
 
 def bitplane_call(pc, x, folded=None):
     """K1 on the raw image ``x`` (B, H, W, C_in) uint8 of the plan ``pc``,
-    its planes packed as the path packs them: the int32 instance, or with
-    ``folded`` the fused instance (K2's epilogue inside, packed words
-    out).  Library: ``F.conv2d`` on the zero-padded raw image against the
+    as the path hands it over: the int32 instance, or with ``folded`` the
+    fused instance (K2's epilogue inside, packed words out).  The plain
+    version convolves the image's bit planes.  Library: ``F.conv2d`` on
+    the zero-padded raw image against the
     ±1 weights (float32, TF32 off; every sum is an integer below 2^24, so
     exact); it computes the int32 instance's function and the fused one's
     contraction only."""
@@ -456,8 +457,8 @@ def bitplane_call(pc, x, folded=None):
     geom = dict(kh=pc["kh"], kw=pc["kw"], stride=pc["stride"],
                 pads=pc["pads"], c_out=pc["c_out"], k_true=pc["k_true"],
                 nbits=pc["nbits"])
-    planes = B.pack_bitplanes_uint8(x, pc["nbits"])
-    args = (planes, pc["w_packed"], pc["rowsum"])
+    args = (x, pc["w_packed"], pc["rowsum"])
+    pargs = (B.pack_bitplanes_uint8(x, pc["nbits"]), *args[1:])
     oh, ow = pc["out_hw"]
     xf = x.permute(0, 3, 1, 2).float()
     (pt, pb), (pl, pr) = pc["pads"]
@@ -474,7 +475,7 @@ def bitplane_call(pc, x, folded=None):
             "bitplane_conv",
             functools.partial(bconv.bitplane_conv2d_packed, *args,
                               out_hw=pc["out_hw"], **geom),
-            functools.partial(ref.bitplane_conv2d_planes_ref, *args, **geom),
+            functools.partial(ref.bitplane_conv2d_planes_ref, *pargs, **geom),
             _nbytes(*args) + bsz * oh * ow * pc["c_out"] * 4,
             work["word_ops"], library,
             lambda y: y.permute(0, 2, 3, 1).round().to(torch.int32),
@@ -485,7 +486,7 @@ def bitplane_call(pc, x, folded=None):
         functools.partial(bconv.bitplane_conv2d_bn_sign_packed, *args, *bn,
                           out_hw=pc["out_hw"], **geom),
         lambda: ref.bn_sign_pack_ref(
-            ref.bitplane_conv2d_planes_ref(*args, **geom), *bn),
+            ref.bitplane_conv2d_planes_ref(*pargs, **geom), *bn),
         _nbytes(*args, *bn) + bsz * oh * ow * B.packed_width(pc["c_out"]) * 4,
         work["word_ops"], library, macs=work["macs"],
         bit_macs=work["bit_macs"])
@@ -1343,8 +1344,8 @@ CONV_RAGGED = ((2, (32, 32), 128, 128, 1, "SAME", False),
                (3, (9, 9), 128, 40, 1, "SAME", True))
 # K1 edges: (hw, C_in, C_out, stride, padding, nbits); the last four
 # exceed a block's shared memory with the full band and 64 channels'
-# weights, and take smaller channel chunks or bands: C_in 256 chunks of
-# 32 in both instances; C_in 352 16 channels in 8 rows in the int32
+# weights, and take smaller channel chunks or bands: C_in 288 chunks of
+# 32 in both instances; C_in 448 16 channels in 8 rows in the int32
 # instance, 32 in 4 rows in the fused one; the last two fit 32 channels
 # in no band, so the fused instance refuses them.
 BITPLANE_RAGGED = (((9, 9), 33, 40, 2, "SAME", 1),
@@ -1352,11 +1353,13 @@ BITPLANE_RAGGED = (((9, 9), 33, 40, 2, "SAME", 1),
                    ((9, 9), 3, 40, 2, "SAME", 1),
                    ((13, 5), 3, 136, 2, "VALID", 8),
                    ((7, 7), 33, 72, 1, "SAME", 8),
-                   ((32, 32), 256, 64, 1, "SAME", 8),
-                   ((16, 16), 352, 40, 1, "SAME", 8),
-                   ((32, 32), 512, 40, 1, "SAME", 8),
-                   ((4, 224), 128, 72, 1, "SAME", 8))
-BITPLANE_FUSED_REFUSED = (((32, 32), 512, 40), ((4, 224), 128, 72))
+                   ((8, 8), 16, 40, 1, "SAME", 4),
+                   ((9, 9), 32, 40, 2, "VALID", 8),
+                   ((32, 32), 288, 64, 1, "SAME", 8),
+                   ((16, 16), 448, 40, 1, "SAME", 8),
+                   ((32, 32), 768, 40, 1, "SAME", 8),
+                   ((4, 448), 128, 72, 1, "SAME", 8))
+BITPLANE_FUSED_REFUSED = (((32, 32), 768, 40), ((4, 448), 128, 72))
 # K2 edges, (M, C): M 1 and past a tile of 8 rows, word tails (40, 100),
 # two slabs of 128 channels, the second one lane wide (132), C % 4 != 0
 # (10, 33: the general path only), and grids that walk several tiles a
@@ -1419,10 +1422,11 @@ def misaligned(t):
 
 
 def bitplane_check(gen, dev, hw, c_in, c_out, stride, padding, nbits) -> str:
-    """K1's two instances against their plain versions on random uint8
-    input below 2^nbits, the fused one also against K2 on the int32 one's
-    output; where 32 channels' weights fit no band, the fused one must
-    refuse the shape (BITPLANE_FUSED_REFUSED)."""
+    """K1's two instances on the raw image against their plain versions on
+    its bit planes, random uint8 input over all 256 values (the bits above
+    nbits set, which K1 ignores), the fused one also against K2 on the
+    int32 one's output; where 32 channels' weights fit no band, the fused
+    one must refuse the shape (BITPLANE_FUSED_REFUSED)."""
     import torch
     from repro_torch.core import binarize as B
     from repro_torch.kernels import binary_conv as bconv
@@ -1431,16 +1435,16 @@ def bitplane_check(gen, dev, hw, c_in, c_out, stride, padding, nbits) -> str:
     w = torch.rand((c_out, 3, 3, c_in), generator=gen) * 2 - 1
     bplan = bconv.make_bitplane_conv_plan(w, input_hw=hw, stride=stride,
                                           padding=padding, nbits=nbits)
-    x8 = torch.randint(0, 2 ** nbits, (2, *hw, c_in), generator=gen,
+    x8 = torch.randint(0, 256, (2, *hw, c_in), generator=gen,
                        dtype=torch.uint8).to(dev)
-    planes = B.pack_bitplanes_uint8(x8, nbits)
-    bargs = (planes, bplan["w_packed"].to(dev), bplan["rowsum"].to(dev))
+    bargs = (x8, bplan["w_packed"].to(dev), bplan["rowsum"].to(dev))
+    pargs = (B.pack_bitplanes_uint8(x8, nbits), *bargs[1:])
     geom = dict(kh=3, kw=3, stride=stride, pads=bplan["pads"], c_out=c_out,
                 k_true=bplan["k_true"], nbits=nbits)
     what = (f"bitplane_conv {hw} C_in={c_in} C_out={c_out} s{stride} "
             f"{padding} nbits={nbits}")
     y = bconv.bitplane_conv2d_packed(*bargs, out_hw=bplan["out_hw"], **geom)
-    check_equal(what, y, ref.bitplane_conv2d_planes_ref(*bargs, **geom))
+    check_equal(what, y, ref.bitplane_conv2d_planes_ref(*pargs, **geom))
     k = 2 ** nbits * int(bplan["k_true"] ** 0.5) // 2
     tau = torch.randint(-k, k + 1, (c_out,), generator=gen).float()
     tau[:2] = y[0, 0, 0, :2].float().cpu()       # y == tau exactly
@@ -1457,7 +1461,7 @@ def bitplane_check(gen, dev, hw, c_in, c_out, stride, padding, nbits) -> str:
                              f"whose 32 channels' weights fit no band")
     got = fused()
     check_equal(f"{what} fused", got, ref.bn_sign_pack_ref(
-        ref.bitplane_conv2d_planes_ref(*bargs, **geom), tau, flip))
+        ref.bitplane_conv2d_planes_ref(*pargs, **geom), tau, flip))
     check_equal(f"{what} fused against K2 on the int32 instance", got,
                 fe.bn_sign_pack(y.reshape(-1, c_out), tau, flip)
                 .reshape(got.shape))
@@ -3771,8 +3775,8 @@ def host_cases(nets, lm, dev) -> dict:
         P(bconv.binary_conv2d_packed, x1, p1["w_packed"], p1["correction"],
           **lib.geom_kwargs(g1)))
     p0, fold0 = bcnn["convs"][0], bcnn["folded_conv"][0]
-    x0 = B.pack_bitplanes_uint8(torch.randint(
-        0, 256, (1, 32, 32, 3), generator=gen, dtype=torch.uint8).to(dev), 8)
+    x0 = torch.randint(0, 256, (1, 32, 32, 3), generator=gen,
+                       dtype=torch.uint8).to(dev)
     g0 = [*lib.conv_geom(p0), 8]
     cases["bitplane_conv_bn_sign"] = (
         (x0, p0["w_packed"], p0["rowsum"], fold0["tau"], fold0["flip"], g0),

@@ -1,41 +1,44 @@
-// K1 bitplane_conv: the first-layer conv on packed bit planes (paper C4).
+// K1 bitplane_conv: the first-layer conv on the raw uint8 image (paper C4).
 //
 // Replaces: src/repro/kernels/binary_conv.py:277 _bitplane_conv_kernel
 //           (pallas_call at :501, in bitplane_conv2d_packed).
-// Computes: planes (nbits, B, H, W, Cw) words, w (C_out, KH*KW*Cw) words ->
-//           out (B, OH, OW, C_out) int32, the exact integer conv of the raw
-//           input x = sum_p plane_p << p against sign(W), true zero padding.
-//           The TPU kernel gets there by popcounts on each plane,
+// Computes: x (B, H, W, C_in) uint8, w (C_out, KH*KW*Cw) words ->
+//           out (B, OH, OW, C_out) int32, the exact integer conv of x's
+//           low nbits bits against sign(W), true zero padding.  The TPU
+//           kernel takes x's bit planes, packed on the host, and gets there
+//           by popcounts on each plane,
 //             ((2^n - 1)(k_true + rowsum) - 2 sum_p 2^p mism_p) >> 1,
-//           which equals that conv; this kernel computes the conv itself on
-//           the tensor cores, so the plan's rowsum (which turns the plane
-//           popcounts into it) is not needed here.  The wrapper still takes
-//           and checks it, keeping the TPU kernel's operands.
+//           which equals that conv; this kernel reads the bytes of x and
+//           computes the conv itself on the tensor cores, so no plane is
+//           built and the plan's rowsum (which turns the plane popcounts
+//           into it) is not needed here.  The wrapper still takes and
+//           checks it, keeping the TPU kernel's operands.
 //           Its fused instance (bitplane_conv_bn_sign) also replaces K2
 //           (src/repro/kernels/fused_epilogue.py:96 _bn_sign_pack_kernel)
 //           where K2 would follow it directly: out (B, OH, OW,
 //           ceil(C_out/32)) words, bit = (f32(y) >= tau) == (flip > 0),
 //           zero-bit tails, bit-identical to K2 on the int32 output
 //           (|y| <= 255 * K < 2^24 here, so f32(y) is exact).
-// Bound on the H100: the int32 output (at the BCNN's stage 0, batch 256,
-//           256*32*32*128*4 = 134 MB, 0.040 ms at 3.35 TB/s).  The
-//           contraction is K = KH*KW*C_in = 27 deep there, one k32 step.
-//           The fused instance writes 1/32 of those bytes (4.2 MB) and
-//           reads the planes (8.4 MB): its bound is a few microseconds,
-//           and the band's decode and the weights' decode per block are
-//           what it pays for.
+// Bound on the H100: at the BCNN's stage 0, batch 512, the int32 instance
+//           writes 512*32*32*128*4 = 268 MB (0.080 ms at 3.35 TB/s); the
+//           fused one reads the image (1.6 MB) and writes 1/32 of that
+//           (8.4 MB), a bound of about 3 microseconds, with 1.8 G uint8
+//           MACs (1.8 us of int8 peak) beside it.  The contraction is
+//           K = KH*KW*C_in = 27 deep there, one k32 step, so the band's
+//           copy and the weights' decode per block are what it pays for.
 // Design:   a block of 4 warps owns a band of R output rows of one image
 //           (R*OW >= 128 pixels) and all C_out channels in chunks of 64.
-//   * Shared memory grows with the band (nbits x rows x W x Cw words and
-//     the decoded bytes) and with a chunk's weights (channels x depth).
-//     Where 64 channels and the full band exceed the card's per-block
-//     limit, the host takes chunks of 32, 16 or 8 channels, then halves R
-//     down to 1 row; a shape that fits in none of these is refused with
-//     kTooLarge, which the wrapper turns into its own error.
-//   * It copies the band's input rows (all nbits planes) into shared
-//     memory with cp.async (16-byte copies where the rows allow), then
-//     decodes them once to uint8, [row][column][channel], with the halo's
-//     zero padding written as 0.
+//   * Shared memory grows with the band (rows x columns x C_in bytes) and
+//     with a chunk's weights (channels x depth).  Where 64 channels and
+//     the full band exceed the card's per-block limit, the host takes
+//     chunks of 32, 16 or 8 channels, then halves R down to 1 row; a
+//     shape that fits in none of these is refused with kTooLarge, which
+//     the wrapper turns into its own error.
+//   * It copies the band's input rows from the image into shared memory,
+//     [row][column][channel] bytes, with the halo's zero padding written
+//     as 0, one byte a thread, masked to its low nbits bits (the bits x's
+//     planes would keep).  At C_in = 3 a band is a few hundred bytes, so
+//     the copy is not what bounds the kernel.
 //   * A table maps each depth d = (tap, c) to its byte offset in that band,
 //     so an A fragment (16 pixels x 32 depths, mma.sync m16n8k32 u8 x s8)
 //     is 16 byte loads per thread; depths past K map to offset 0 against
@@ -72,11 +75,10 @@ struct Geometry {
   int B, H, W, Cw, C_in, C_out, KH, KW, stride, pad_top, pad_left, OH, OW,
       nbits;
   int R, rows_b, Wb, K, Kpad, ws_ld, chunk;
-  size_t raw_bytes, stage_bytes, ws_bytes, off_bytes, xs_bytes, tf_bytes;
+  size_t stage_bytes, ws_bytes, off_bytes, xs_bytes, tf_bytes;
 
   __host__ __device__ size_t smem() const {
-    return raw_bytes + stage_bytes + ws_bytes + off_bytes + xs_bytes +
-           tf_bytes;
+    return stage_bytes + ws_bytes + off_bytes + xs_bytes + tf_bytes;
   }
 };
 
@@ -95,7 +97,6 @@ Geometry make_geometry(int B, int H, int W, int Cw, int C_in, int C_out,
   g.K = KH * KW * C_in;
   g.Kpad = (g.K + 31) / 32 * 32;
   g.ws_ld = g.Kpad + 16;
-  g.raw_bytes = round16(static_cast<size_t>(nbits) * g.rows_b * W * Cw * 4);
   g.stage_bytes = static_cast<size_t>(kWarps) * 16 * kStageLd * 4;
   g.ws_bytes = round16(static_cast<size_t>(chunk) * g.ws_ld);
   g.off_bytes = round16(static_cast<size_t>(g.Kpad) * 4);
@@ -103,10 +104,6 @@ Geometry make_geometry(int B, int H, int W, int Cw, int C_in, int C_out,
   // the fused instance's tau and flip of one chunk
   g.tf_bytes = fused ? 2 * kChunkN * sizeof(float) : 0;
   return g;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 __device__ __forceinline__ void mma_u8s8(int32_t (&c)[4], uint32_t a0,
@@ -157,23 +154,19 @@ __device__ __forceinline__ void store_words(const int32_t* st,
 // epilogue on tau/flip; else (B, OH, OW, C_out) int32 and tau/flip unused.
 template <bool kFused>
 __global__ void __launch_bounds__(kThreads)
-    bitplane_conv_kernel(const uint32_t* __restrict__ planes,
+    bitplane_conv_kernel(const uint8_t* __restrict__ x,
                          const uint32_t* __restrict__ w,
                          const float* __restrict__ tau,
                          const float* __restrict__ flip,
                          void* __restrict__ out_, Geometry G) {
   extern __shared__ __align__(16) unsigned char smem[];
-  uint32_t* raw = reinterpret_cast<uint32_t*>(smem);
-  int32_t* stage = reinterpret_cast<int32_t*>(smem + G.raw_bytes);
-  int8_t* ws = reinterpret_cast<int8_t*>(smem + G.raw_bytes + G.stage_bytes);
-  int* off = reinterpret_cast<int*>(smem + G.raw_bytes + G.stage_bytes +
-                                    G.ws_bytes);
-  uint8_t* xs = reinterpret_cast<uint8_t*>(smem + G.raw_bytes +
-                                           G.stage_bytes + G.ws_bytes +
+  int32_t* stage = reinterpret_cast<int32_t*>(smem);
+  int8_t* ws = reinterpret_cast<int8_t*>(smem + G.stage_bytes);
+  int* off = reinterpret_cast<int*>(smem + G.stage_bytes + G.ws_bytes);
+  uint8_t* xs = reinterpret_cast<uint8_t*>(smem + G.stage_bytes + G.ws_bytes +
                                            G.off_bytes);
-  float* tau_s = reinterpret_cast<float*>(smem + G.raw_bytes + G.stage_bytes +
-                                          G.ws_bytes + G.off_bytes +
-                                          G.xs_bytes);
+  float* tau_s = reinterpret_cast<float*>(smem + G.stage_bytes + G.ws_bytes +
+                                          G.off_bytes + G.xs_bytes);
   float* flip_s = tau_s + kChunkN;
   const int tid = threadIdx.x;
   const int lane = lane_id();
@@ -183,35 +176,25 @@ __global__ void __launch_bounds__(kThreads)
   const int r_eff = min(G.R, G.OH - oh0);
   const int P = r_eff * G.OW;
   const int ih_first = oh0 * G.stride - G.pad_top;
-  const int row_words = G.W * G.Cw;
 
-  // 1. the band's plane rows -> raw[p][rb][iw][k], cp.async
-  const int lo = max(ih_first, 0);
-  const int hi = min(ih_first + G.rows_b, G.H);
-  if (hi > lo) {
-    const int n_words = (hi - lo) * row_words;
-    const bool vec16 = row_words % 4 == 0 &&
-                       (reinterpret_cast<uintptr_t>(planes) & 15) == 0;
-    for (int p = 0; p < G.nbits; ++p) {
-      const uint32_t* src =
-          planes + ((static_cast<long long>(p) * G.B + b) * G.H + lo) *
-                       row_words;
-      uint32_t* dst = raw + (p * G.rows_b + (lo - ih_first)) * row_words;
-      if (vec16) {
-        for (int i = tid * 4; i < n_words; i += kThreads * 4)
-          asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                           smem_addr(dst + i)),
-                       "l"(src + i));
-      } else {
-        for (int i = tid; i < n_words; i += kThreads)
-          asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                           smem_addr(dst + i)),
-                       "l"(src + i));
-      }
-    }
+  // 1. the band's input rows -> xs[rb][col][c], the halo 0.  Byte i of
+  //    band row rb is image byte o = i - lead of image row ih_first + rb
+  //    (o = iw * C_in + c), or padding where that row or o is outside.
+  const int row_bytes = G.Wb * G.C_in;
+  const int lead = G.pad_left * G.C_in;
+  const int img_bytes = G.W * G.C_in;
+  const int band = G.rows_b * row_bytes;
+  const uint8_t* img = x + static_cast<long long>(b) * G.H * img_bytes;
+  const uint32_t mask = (1u << G.nbits) - 1u;
+  for (int i = tid; i < band; i += kThreads) {
+    const int ih = ih_first + i / row_bytes;
+    const int o = i % row_bytes - lead;
+    xs[i] = ih >= 0 && ih < G.H && o >= 0 && o < img_bytes
+                ? static_cast<uint8_t>(
+                      img[static_cast<long long>(ih) * img_bytes + o] & mask)
+                : 0;
   }
-  asm volatile("cp.async.commit_group;\n" ::);
-  // the depth -> band offset table, while the copies fly
+  // the depth -> band offset table
   for (int d = tid; d < G.Kpad; d += kThreads) {
     int o = 0;
     if (d < G.K) {
@@ -220,25 +203,6 @@ __global__ void __launch_bounds__(kThreads)
       o = ((tap / G.KW) * G.Wb + tap % G.KW) * G.C_in + c;
     }
     off[d] = o;
-  }
-  asm volatile("cp.async.wait_group 0;\n" ::);
-  __syncthreads();
-
-  // 2. decode the band once: xs[rb][col][c] = sum_p bit_c(plane p) << p
-  const int band = G.rows_b * G.Wb * G.C_in;
-  for (int i = tid; i < band; i += kThreads) {
-    const int c = i % G.C_in;
-    const int col = (i / G.C_in) % G.Wb;
-    const int rb = i / (G.C_in * G.Wb);
-    const int ih = ih_first + rb;
-    const int iw = col - G.pad_left;
-    uint32_t v = 0;
-    if (ih >= 0 && ih < G.H && iw >= 0 && iw < G.W) {
-      const uint32_t* px = raw + (rb * G.W + iw) * G.Cw + c / 32;
-      for (int p = 0; p < G.nbits; ++p)
-        v |= ((px[p * G.rows_b * row_words] >> (c % 32)) & 1u) << p;
-    }
-    xs[i] = static_cast<uint8_t>(v);
   }
 
   const int g = lane >> 2;
@@ -255,8 +219,8 @@ __global__ void __launch_bounds__(kThreads)
     ws[(i / tail) * G.ws_ld + G.K + i % tail] = 0;
 
   for (int n0 = 0; n0 < G.C_out; n0 += G.chunk) {
-    __syncthreads();  // the band is decoded; the last chunk's weights done
-    // 3. this chunk's weights -> ws[n][tap * C_in + c] = +-1, 0 past C_out
+    __syncthreads();  // the band is copied; the last chunk's weights done
+    // 2. this chunk's weights -> ws[n][tap * C_in + c] = +-1, 0 past C_out
     for (int i = tid; i < G.chunk * taps; i += kThreads) {
       const int nl = i / taps;
       const int tap = i % taps;
@@ -282,7 +246,7 @@ __global__ void __launch_bounds__(kThreads)
     const int cn = min(G.chunk, G.C_out - n0);
     const int ntiles = (cn + 7) / 8;
 
-    // 4. 16-pixel tiles x 64 channels on the tensor cores
+    // 3. 16-pixel tiles x 64 channels on the tensor cores
     for (int mt = warp; mt < mtiles; mt += kWarps) {
       int base[2];
 #pragma unroll
@@ -388,7 +352,7 @@ int search_geometry(int B, int H, int W, int Cw, int C_in, int C_out, int KH,
 
 // The launch of either instance in the geometry search_geometry finds.
 template <bool kFused>
-int launch(const void* planes, const void* w, const void* tau,
+int launch(const void* x, const void* w, const void* tau,
            const void* flip, void* out, int B, int H, int W, int Cw,
            int C_in, int C_out, int KH, int KW, int stride, int pad_top,
            int pad_left, int OH, int OW, int nbits, void* stream) {
@@ -412,7 +376,7 @@ int launch(const void* planes, const void* w, const void* tau,
   const dim3 grid((OH + g.R - 1) / g.R, B);
   bitplane_conv_kernel<kFused><<<grid, kThreads, smem,
                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(planes), static_cast<const uint32_t*>(w),
+      static_cast<const uint8_t*>(x), static_cast<const uint32_t*>(w),
       static_cast<const float*>(tau), static_cast<const float*>(flip), out,
       g);
   return static_cast<int>(cudaGetLastError());
@@ -420,25 +384,25 @@ int launch(const void* planes, const void* w, const void* tau,
 
 }  // namespace
 
-extern "C" int bitplane_conv(const void* planes, const void* w, void* out,
+extern "C" int bitplane_conv(const void* x, const void* w, void* out,
                              int B, int H, int W, int Cw, int C_in, int C_out,
                              int KH, int KW, int stride, int pad_top,
                              int pad_left, int OH, int OW, int nbits,
                              void* stream) {
-  return launch<false>(planes, w, nullptr, nullptr, out, B, H, W, Cw, C_in,
+  return launch<false>(x, w, nullptr, nullptr, out, B, H, W, Cw, C_in,
                        C_out, KH, KW, stride, pad_top, pad_left, OH, OW,
                        nbits, stream);
 }
 
 // The fused instance: out (B, OH, OW, ceil(C_out/32)) words.
-extern "C" int bitplane_conv_bn_sign(const void* planes, const void* w,
+extern "C" int bitplane_conv_bn_sign(const void* x, const void* w,
                                      const void* tau, const void* flip,
                                      void* out, int B, int H, int W, int Cw,
                                      int C_in, int C_out, int KH, int KW,
                                      int stride, int pad_top, int pad_left,
                                      int OH, int OW, int nbits,
                                      void* stream) {
-  return launch<true>(planes, w, tau, flip, out, B, H, W, Cw, C_in, C_out,
+  return launch<true>(x, w, tau, flip, out, B, H, W, Cw, C_in, C_out,
                       KH, KW, stride, pad_top, pad_left, OH, OW, nbits,
                       stream);
 }

@@ -5,7 +5,7 @@
   correction (C5) or the bit-plane rowsum (C4).  Plans are built on the
   CPU in exact integer arithmetic and moved to the device afterwards.
 * :func:`bitplane_conv2d_packed` (K1, ``csrc/bitplane_conv.cu``) is the
-  first-layer conv over packed bit planes, and
+  first-layer conv on the raw uint8 image (no bit plane is built), and
   :func:`bitplane_conv2d_bn_sign_packed` the same kernel with K2's BN-sign
   epilogue fused in (packed words out); :func:`binary_conv2d_bn_sign_packed`
   (K3, ``csrc/conv_bn_sign.cu``) is the packed conv with the C5
@@ -141,42 +141,41 @@ def _check_geometry(h: int, w: int, kh: int, kw: int, stride: int, pads,
                          f"pads {pads}: expected {want}")
 
 
-def _bitplane_operands(x_planes, w_packed, rowsum, *, kh, kw, stride, pads,
+def _bitplane_operands(x_uint8, w_packed, rowsum, *, kh, kw, stride, pads,
                        out_hw, c_out, k_true, nbits):
     """Check the operands K1's two instances share; returns the launch's
     device and the pointers and sizes that lead their C entry points'
     arguments, and those that end them."""
-    dev = _build.cuda_device(x_planes, "x_planes")
-    nb, bsz, h, w, cw = x_planes.shape
-    if nb != nbits or not 1 <= nbits <= 8:
-        raise ValueError(f"x_planes holds {nb} planes, plan says {nbits} "
-                         f"(the kernel takes 1 to 8)")
+    dev = _build.cuda_device(x_uint8, "x_uint8")
+    bsz, h, w, c_x = x_uint8.shape
+    if not 1 <= nbits <= 8:
+        raise ValueError(f"the plan says {nbits} bits; the kernel takes 1 "
+                         f"to 8")
     c_in, rem = divmod(k_true, kh * kw)
-    if rem or not 32 * (cw - 1) < c_in <= 32 * cw:
-        raise ValueError(f"k_true {k_true} is not KH*KW*C_in for a C_in "
-                         f"packed into {cw} words")
+    if rem or c_in != c_x:
+        raise ValueError(f"k_true {k_true} is not KH*KW*C_in for x_uint8's "
+                         f"C_in {c_x}")
+    cw = B.packed_width(c_in)
     _check_geometry(h, w, kh, kw, stride, pads, out_hw)
     _build.require(rowsum, "rowsum", torch.int32, (c_out,), dev)
-    ptrs = (_build.require(x_planes, "x_planes", torch.int32,
-                           x_planes.shape, dev),
+    ptrs = (_build.require(x_uint8, "x_uint8", torch.uint8, x_uint8.shape,
+                           dev),
             _build.require(w_packed, "w_packed", torch.int32,
                            (c_out, kh * kw * cw), dev))
     sizes = (bsz, h, w, cw, c_in, c_out, kh, kw, stride, pads[0][0],
-             pads[1][0], *out_hw, nbits, _build.stream_of(x_planes))
+             pads[1][0], *out_hw, nbits, _build.stream_of(x_uint8))
     return dev, ptrs, sizes
 
 
-def _bitplane_terms(h, w, cw, c_in, kh, kw, stride, ow, nbits, rows, chunk,
+def _bitplane_terms(c_in, kh, kw, stride, ow, rows, chunk,
                     fused) -> tuple[S.SmemTerm, ...]:
     rows_b = (rows - 1) * stride + kh
     wb = (ow - 1) * stride + kw
     kpad = S.ceil_div(kh * kw * c_in, 32) * 32
-    terms = [S.SmemTerm("planes_band",
-                        S.round16(nbits * rows_b * w * cw * 4)),
-             S.SmemTerm("output_stage", 4 * 16 * K1_STAGE_LD * 4),
+    terms = [S.SmemTerm("output_stage", 4 * 16 * K1_STAGE_LD * 4),
              S.SmemTerm("chunk_weights", S.round16(chunk * (kpad + 16))),
              S.SmemTerm("depth_offsets", S.round16(kpad * 4)),
-             S.SmemTerm("decoded_band", S.round16(rows_b * wb * c_in))]
+             S.SmemTerm("input_band", S.round16(rows_b * wb * c_in))]
     if fused:
         terms.append(S.SmemTerm("tau_flip", 2 * K1_CHUNK * 4))
     return tuple(terms)
@@ -192,7 +191,9 @@ def bitplane_estimate(bsz: int, h: int, w: int, cw: int, c_in: int,
     takes: the largest chunk of 64, 32 (then 16, 8 for the int32
     instance), then the largest band from ceil(128 / OW) rows halving to
     1, that fits a block.  Where none fits, the smallest, which the
-    launcher refuses."""
+    launcher refuses.  The arguments are the launcher's query's, in its
+    order; the band's bytes do not depend on ``h``, ``cw`` or
+    ``nbits``."""
     chunks = (64, 32) if fused else (64, 32, 16, 8)
     bands, r = [], min(S.ceil_div(K1_MIN_PIXELS, ow), oh)
     while r >= 1:
@@ -200,8 +201,8 @@ def bitplane_estimate(bsz: int, h: int, w: int, cw: int, c_in: int,
         r = r // 2 if r > 1 else 0
     for rows in bands:
         for chunk in chunks:
-            terms = _bitplane_terms(h, w, cw, c_in, kh, kw, stride, ow,
-                                    nbits, rows, chunk, fused)
+            terms = _bitplane_terms(c_in, kh, kw, stride, ow, rows, chunk,
+                                    fused)
             if sum(t.bytes for t in terms) <= S.SMEM_BUDGET:
                 break
         else:
@@ -220,39 +221,40 @@ def _bitplane_check(err: int, what: str, sizes, fused: bool) -> None:
     its search found no band and chunk that fit a block (nothing
     launched), with :func:`bitplane_estimate`'s breakdown."""
     if err == BITPLANE_TOO_LARGE:
-        w, c_in, kh, kw, nbits = sizes[2], sizes[4], sizes[6], sizes[7], \
-            sizes[13]
+        w, c_in, kh, kw = sizes[2], sizes[4], sizes[6], sizes[7]
         raise S.SmemBudgetError(
             bitplane_estimate(*sizes[:14], fused),
             detail=f"{what}: one output row's band ({kh} input rows of "
-                   f"W={w} at C_in={c_in}, {nbits} planes) and "
+                   f"W={w} at C_in={c_in} bytes a pixel) and "
                    f"{32 if fused else 8} channels' weights of depth "
                    f"{kh * kw * c_in} exceed a block's shared memory")
     _build.check(err, what)
 
 
-def bitplane_conv2d_packed(x_planes: torch.Tensor, w_packed: torch.Tensor,
+def bitplane_conv2d_packed(x_uint8: torch.Tensor, w_packed: torch.Tensor,
                            rowsum: torch.Tensor, *, kh: int, kw: int,
                            stride: int, pads, out_hw: tuple[int, int],
                            c_out: int, k_true: int,
                            nbits: int) -> torch.Tensor:
     """K1: first-layer fixed-precision conv (paper C4) in one launch.
 
-    ``x_planes``: (nbits, B, H, W, Cw) packed bit planes
-    (``binarize.pack_bitplanes_uint8``), ``w_packed``: (C_out, KH*KW*Cw),
-    ``rowsum``: (C_out,) int32.  Returns (B, OH, OW, C_out) int32, the
-    exact integer conv of the raw input against sign(W) with zero padding.
-    The kernel decodes the planes to the raw values and convolves them on
-    the tensor cores, so it needs no rowsum; the wrapper still checks it,
-    the plan's operand.  Raises ``SmemBudgetError`` (a ``ValueError``),
-    before launching, for an input whose band of rows and 8 channels'
-    weights exceed one block's shared memory.  Adds one to
+    ``x_uint8``: (B, H, W, C_in) uint8, the raw image (C_in = k_true /
+    (KH*KW)), ``w_packed``: (C_out, KH*KW*Cw), ``rowsum``: (C_out,) int32.
+    Returns (B, OH, OW, C_out) int32, the exact integer conv of the
+    image's low ``nbits`` bits against sign(W) with zero padding, equal to
+    the plane-by-plane conv of ``binarize.pack_bitplanes_uint8(x_uint8,
+    nbits)``.  The kernel reads the image's bytes and convolves them on
+    the tensor cores, so no bit plane is built and it needs no rowsum; the
+    wrapper still checks it, the plan's operand.  Raises
+    ``SmemBudgetError`` (a ``ValueError``), before launching, for an input
+    whose band of rows and 8 channels' weights exceed one block's shared
+    memory.  Adds one to
     ``bitplane_conv2d_packed.launches`` per kernel launch.
     """
     dev, ptrs, sizes = _bitplane_operands(
-        x_planes, w_packed, rowsum, kh=kh, kw=kw, stride=stride, pads=pads,
+        x_uint8, w_packed, rowsum, kh=kh, kw=kw, stride=stride, pads=pads,
         out_hw=out_hw, c_out=c_out, k_true=k_true, nbits=nbits)
-    out = torch.empty((x_planes.shape[1], *out_hw, c_out),
+    out = torch.empty((x_uint8.shape[0], *out_hw, c_out),
                       dtype=torch.int32, device=dev)
     lib = _build.load("bitplane_conv", BITPLANE_ENTRIES)
     err = lib.bitplane_conv(*ptrs, out.data_ptr(), *sizes)
@@ -264,7 +266,7 @@ def bitplane_conv2d_packed(x_planes: torch.Tensor, w_packed: torch.Tensor,
 bitplane_conv2d_packed.launches = 0
 
 
-def bitplane_conv2d_bn_sign_packed(x_planes: torch.Tensor,
+def bitplane_conv2d_bn_sign_packed(x_uint8: torch.Tensor,
                                    w_packed: torch.Tensor,
                                    rowsum: torch.Tensor, tau: torch.Tensor,
                                    flip: torch.Tensor, *, kh: int, kw: int,
@@ -285,9 +287,9 @@ def bitplane_conv2d_bn_sign_packed(x_planes: torch.Tensor,
     ``bitplane_conv2d_bn_sign_packed.launches`` per kernel launch.
     """
     dev, ptrs, sizes = _bitplane_operands(
-        x_planes, w_packed, rowsum, kh=kh, kw=kw, stride=stride, pads=pads,
+        x_uint8, w_packed, rowsum, kh=kh, kw=kw, stride=stride, pads=pads,
         out_hw=out_hw, c_out=c_out, k_true=k_true, nbits=nbits)
-    out = torch.empty((x_planes.shape[1], *out_hw, B.packed_width(c_out)),
+    out = torch.empty((x_uint8.shape[0], *out_hw, B.packed_width(c_out)),
                       dtype=torch.int32, device=dev)
     lib = _build.load("bitplane_conv", BITPLANE_ENTRIES)
     err = lib.bitplane_conv_bn_sign(

@@ -112,18 +112,18 @@ def _bitpack(x):
     return _bp.bitpack(x)
 
 
-def _bitplane_conv(x_planes, w_packed, rowsum, geom):
+def _bitplane_conv(x_uint8, w_packed, rowsum, geom):
     if _recording is not None:
         _recording.append("bitplane_conv")
-    return _bconv.bitplane_conv2d_packed(x_planes, w_packed, rowsum,
+    return _bconv.bitplane_conv2d_packed(x_uint8, w_packed, rowsum,
                                          nbits=geom[11], **geom_kwargs(geom))
 
 
-def _bitplane_conv_bn_sign(x_planes, w_packed, rowsum, tau, flip, geom):
+def _bitplane_conv_bn_sign(x_uint8, w_packed, rowsum, tau, flip, geom):
     if _recording is not None:
         _recording.append("bitplane_conv_bn_sign")
     return _bconv.bitplane_conv2d_bn_sign_packed(
-        x_planes, w_packed, rowsum, tau, flip, nbits=geom[11],
+        x_uint8, w_packed, rowsum, tau, flip, nbits=geom[11],
         **geom_kwargs(geom))
 
 
@@ -185,13 +185,13 @@ def _fake_bitpack(x):
     return _words(x, x.shape[0], n=x.shape[1])
 
 
-def _fake_bitplane_conv(x_planes, w_packed, rowsum, geom):
-    return x_planes.new_empty((x_planes.shape[1], geom[7], geom[8], geom[9]),
-                              dtype=torch.int32)
+def _fake_bitplane_conv(x_uint8, w_packed, rowsum, geom):
+    return x_uint8.new_empty((x_uint8.shape[0], geom[7], geom[8], geom[9]),
+                             dtype=torch.int32)
 
 
-def _fake_bitplane_conv_bn_sign(x_planes, w_packed, rowsum, tau, flip, geom):
-    return _words(x_planes, x_planes.shape[1], geom[7], geom[8], n=geom[9])
+def _fake_bitplane_conv_bn_sign(x_uint8, w_packed, rowsum, tau, flip, geom):
+    return _words(x_uint8, x_uint8.shape[0], geom[7], geom[8], n=geom[9])
 
 
 def _fake_bn_sign_pack(x, tau, flip):
@@ -288,20 +288,21 @@ def _est_binary_conv(sms, x, w, correction, geom):
     return _conv(x, w, geom, False, sms)
 
 
-def _bitplane(x_planes, geom, fused):
-    nbits, bsz, h, w, cw = x_planes.shape
+def _bitplane(x_uint8, geom, fused):
+    bsz, h, w, _ = x_uint8.shape
     kh, kw, stride, pt, _, pl = geom[:6]
-    return _bconv.bitplane_estimate(bsz, h, w, cw, geom[10] // (kh * kw),
+    c_in = geom[10] // (kh * kw)
+    return _bconv.bitplane_estimate(bsz, h, w, B.packed_width(c_in), c_in,
                                     geom[9], kh, kw, stride, pt, pl, geom[7],
-                                    geom[8], nbits, fused)
+                                    geom[8], geom[11], fused)
 
 
-def _est_bitplane_conv(sms, x_planes, w, rowsum, geom):
-    return _bitplane(x_planes, geom, False)
+def _est_bitplane_conv(sms, x_uint8, w, rowsum, geom):
+    return _bitplane(x_uint8, geom, False)
 
 
-def _est_bitplane_conv_bn_sign(sms, x_planes, w, rowsum, tau, flip, geom):
-    return _bitplane(x_planes, geom, True)
+def _est_bitplane_conv_bn_sign(sms, x_uint8, w, rowsum, tau, flip, geom):
+    return _bitplane(x_uint8, geom, True)
 
 
 def _est_dense_stack(sms, x, stages, k_trues):
@@ -366,14 +367,14 @@ SPECS = {
         _bp.bitpack, _bitpack, _fake_bitpack, _est_bitpack, WORDS,
         ("_bitpack_kernel",), "bitpack", _bp.ENTRIES),
     "bitplane_conv": KernelSpec(
-        "bitplane_conv(Tensor x_planes, Tensor w_packed, Tensor rowsum, "
+        "bitplane_conv(Tensor x_uint8, Tensor w_packed, Tensor rowsum, "
         "int[] geom) -> Tensor",
         _bconv.bitplane_conv2d_packed, _bitplane_conv, _fake_bitplane_conv,
         _est_bitplane_conv, ACCUMULATOR, ("_bitplane_conv_kernel",),
         "bitplane_conv", _bconv.BITPLANE_ENTRIES),
     # K1's body with K2's epilogue inside
     "bitplane_conv_bn_sign": KernelSpec(
-        "bitplane_conv_bn_sign(Tensor x_planes, Tensor w_packed, "
+        "bitplane_conv_bn_sign(Tensor x_uint8, Tensor w_packed, "
         "Tensor rowsum, Tensor tau, Tensor flip, int[] geom) -> Tensor",
         _bconv.bitplane_conv2d_bn_sign_packed, _bitplane_conv_bn_sign,
         _fake_bitplane_conv_bn_sign, _est_bitplane_conv_bn_sign, WORDS,

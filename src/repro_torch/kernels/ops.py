@@ -27,7 +27,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch import telemetry
-from repro_torch.core import binarize as B
 from repro_torch.kernels import binary_conv as _bconv
 from repro_torch.kernels import binary_matmul as _bmm
 from repro_torch.kernels import library as _lib
@@ -283,13 +282,13 @@ def bitplane_conv2d_packed(plan: dict, x_uint8: torch.Tensor, *,
                            backend: str = "auto") -> torch.Tensor:
     """First-layer fixed-precision conv (paper C4) on a
     ``make_bitplane_conv_plan`` plan: raw (B, H, W, C_in) uint8 ->
-    (B, OH, OW, C_out) int32.  The bit planes are packed with plain tensor
-    ops and the conv is one kernel launch."""
+    (B, OH, OW, C_out) int32.  On the card the conv is one kernel launch
+    on the image itself: no bit plane is built.  The plain version packs
+    the planes (``binarize.pack_bitplanes_uint8``) and convolves each."""
     if _resolve(backend, x_uint8) == "torch":
         return _ref.bitplane_conv2d_packed_ref(
             x_uint8, plan["w_packed"], plan["rowsum"], **_bitplane_geom(plan))
-    x_planes = B.pack_bitplanes_uint8(x_uint8, plan["nbits"])
-    return _launch("bitplane_conv", x_planes, plan["w_packed"],
+    return _launch("bitplane_conv", x_uint8.contiguous(), plan["w_packed"],
                    plan["rowsum"], [*_lib.conv_geom(plan), plan["nbits"]])
 
 
@@ -300,13 +299,12 @@ def bitplane_conv2d_bn_sign_packed(plan: dict, folded: dict,
     ``make_bitplane_conv_plan`` plan and a folded BN (``tau``, ``flip``):
     raw (B, H, W, C_in) uint8 -> (B, OH, OW, ceil(C_out/32)) words,
     bit-identical to :func:`bn_sign_pack` of
-    :func:`bitplane_conv2d_packed`.  The bit planes are packed with plain
-    tensor ops and the conv with its epilogue is one kernel launch."""
+    :func:`bitplane_conv2d_packed`.  On the card the conv with its
+    epilogue is one kernel launch on the image itself."""
     if _resolve(backend, x_uint8) == "torch":
         return _ref.bitplane_conv2d_bn_sign_packed_ref(
             x_uint8, plan["w_packed"], plan["rowsum"], folded["tau"],
             folded["flip"], **_bitplane_geom(plan))
-    x_planes = B.pack_bitplanes_uint8(x_uint8, plan["nbits"])
-    return _launch("bitplane_conv_bn_sign", x_planes, plan["w_packed"],
-                   plan["rowsum"], folded["tau"], folded["flip"],
-                   [*_lib.conv_geom(plan), plan["nbits"]])
+    return _launch("bitplane_conv_bn_sign", x_uint8.contiguous(),
+                   plan["w_packed"], plan["rowsum"], folded["tau"],
+                   folded["flip"], [*_lib.conv_geom(plan), plan["nbits"]])

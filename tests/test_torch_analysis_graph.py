@@ -89,13 +89,36 @@ def test_trace_records_values_and_touches_no_counter(demos):
 
 
 def test_max_intermediate_is_the_bit_planes(demos):
-    """The largest tensor outside a kernel of the BCNN is the int64 plane
-    stack of the raw input (``pack_bitplanes_uint8``): 8 planes x B x H x
-    W x 32 bits; at full width and batch 256 that is 537 MB."""
+    """No bit-plane stack is the largest intermediate, since none is
+    built: K1 reads the raw image, so no (nbits, B, H, W, 32) plane
+    tensor exists (537 MB at full width and batch 256, in int64), and
+    the largest tensor outside a kernel of the BCNN is a packed pool's
+    words, (B, H/2, W/2, Cw) int32 (the bit-domain max of two rows)."""
     packed = demos["bcnn"]
-    nbytes, shape = graph.max_intermediate_bytes(
-        TREPORT.cuda_forward, packed, TREPORT.forward_input(packed, 8))
-    assert shape == (8, 8, 8, 8, 32) and nbytes == np.prod(shape) * 8
+    x = TREPORT.forward_input(packed, 8)
+    tr = graph.trace(TREPORT.cuda_forward, packed, x)
+    nbits, h, w = packed["spec"].nbits_input, *packed["spec"].input_hw
+    assert not [v for v in tr.values if v.shape[:4] == (nbits, 8, h, w)]
+    nbytes, shape = graph.max_intermediate_bytes(TREPORT.cuda_forward,
+                                                 packed, x)
+    cw = packed["spec"].stages[-1].c_out // 32
+    assert shape == (8, h // 2, w // 2, cw) and nbytes == np.prod(shape) * 4
+
+
+def test_bcnn_first_kernel_takes_the_raw_input(demos):
+    """The BCNN's ``'cuda'`` forward hands its uint8 input to K1-fused
+    as it is: the first op of the trace is ``bitplane_conv_bn_sign`` on
+    the input leaf, and no aten op reads the input before or beside it."""
+    packed = demos["bcnn"]
+    x = TREPORT.forward_input(packed, 8)
+    tr = graph.trace(TREPORT.cuda_forward, packed, x)
+    leaf = tr.inputs[-1]
+    assert tr.values[leaf].dtype == torch.uint8
+    assert tr.values[leaf].shape == tuple(x.shape)
+    first = tr.ops[0]
+    assert first.kernel == "bitplane_conv_bn_sign"
+    assert first.inputs[0] == leaf
+    assert [op.name for op in tr.ops if leaf in op.inputs] == [first.name]
 
 
 def test_indexing_on_fake_tensors_matches_pytorch():

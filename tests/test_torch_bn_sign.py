@@ -35,7 +35,6 @@ from repro.kernels import binary_conv as JBC
 from repro.kernels import ops as JOPS
 from repro.models import cnn as JC
 from repro_torch import convert as CV
-from repro_torch.core import binarize as TB
 from repro_torch.core import binary_layers as TL
 from repro_torch.kernels import binary_conv as TBC
 from repro_torch.kernels import fused_epilogue as TFE
@@ -82,20 +81,19 @@ def _round16(x):
     return (x + 15) & ~15
 
 
-def k1_smem(*, w, cw, c_in, ow, stride, nbits, r_band, chunk, fused,
-            kh=3, kw=3):
-    """K1's shared memory per block (``Geometry::smem``): the band's plane
-    rows, four warps' 16 x 72 int32 stages, a chunk's weights, the depth
-    table, the decoded band, and the fused instance's tau and flip."""
+def k1_smem(*, c_in, ow, stride, r_band, chunk, fused, kh=3, kw=3):
+    """K1's shared memory per block (``Geometry::smem``): four warps' 16 x
+    72 int32 stages, a chunk's weights, the depth table, the band's image
+    bytes, and the fused instance's tau and flip."""
     rows_b = (r_band - 1) * stride + kh
     wb = (ow - 1) * stride + kw
     kpad = -(-(kh * kw * c_in) // 32) * 32
-    return (_round16(nbits * rows_b * w * cw * 4) + 4 * 16 * STAGE_LD * 4
+    return (4 * 16 * STAGE_LD * 4
             + _round16(chunk * (kpad + 16)) + _round16(kpad * 4)
             + _round16(rows_b * wb * c_in) + (2 * 64 * 4 if fused else 0))
 
 
-def k1_geometry(*, w, c_in, out_hw, stride, nbits, fused):
+def k1_geometry(*, c_in, out_hw, stride, fused):
     """The host's search: from the full band (R rows, R * OW >= 128
     pixels) down, halving R, the largest chunk that fits; 64, 32, 16 or 8
     channels for the int32 instance, 64 or 32 for the fused one.  None is
@@ -105,8 +103,7 @@ def k1_geometry(*, w, c_in, out_hw, stride, nbits, fused):
     chunks = (64, 32) if fused else (64, 32, 16, 8)
     while r_band >= 1:
         for chunk in chunks:
-            if k1_smem(w=w, cw=-(-c_in // 32), c_in=c_in, ow=ow,
-                       stride=stride, nbits=nbits, r_band=r_band,
+            if k1_smem(c_in=c_in, ow=ow, stride=stride, r_band=r_band,
                        chunk=chunk, fused=fused) <= SMEM_LIMIT:
                 return r_band, chunk
         r_band //= 2
@@ -185,18 +182,20 @@ def _reference_words(jplan, x, tau, flip, backend="jnp"):
 
 def test_k1_geometry_keeps_whole_words_per_chunk():
     """The BCNN's first stage takes the full band and chunks of 64 in both
-    instances; C_in 256 takes 32 in both; at C_in 352 the int32 instance
+    instances; C_in 288 takes 32 in both; at C_in 448 the int32 instance
     takes 16 channels, the fused one halves the band to keep 32; at C_in
-    512 no band holds 32 channels' weights, and the fused one refuses."""
+    512 and 768, and on a 448-wide row at C_in 128, no band holds 32
+    channels' weights, and the fused one refuses."""
     def both(hw, c_in):
-        kw = dict(w=hw[1], c_in=c_in, out_hw=hw, stride=1, nbits=8)
+        kw = dict(c_in=c_in, out_hw=hw, stride=1)
         return (k1_geometry(fused=False, **kw),
                 k1_geometry(fused=True, **kw))
     assert both((32, 32), 3) == ((4, 64), (4, 64))
-    assert both((32, 32), 256) == ((4, 32), (4, 32))
-    assert both((16, 16), 352) == ((8, 16), (4, 32))
-    assert both((32, 32), 512) == ((2, 8), None)
-    assert both((4, 224), 128) == ((1, 16), None)
+    assert both((32, 32), 288) == ((4, 32), (4, 32))
+    assert both((16, 16), 448) == ((8, 16), (4, 32))
+    assert both((32, 32), 512) == ((4, 16), None)
+    assert both((32, 32), 768) == ((2, 8), None)
+    assert both((4, 448), 128) == ((1, 16), None)
 
 
 # (hw, C_out, stride, padding, chunk, band): chunks of 64 and 32, C_out
@@ -215,10 +214,9 @@ def test_fused_epilogue_model_matches_jnp(hw, c_out, stride, padding, chunk,
                                           band):
     rng, x, jplan, tplan, tau, flip = _conv_case(
         ("fused", chunk, band), hw, 3, c_out, stride, padding)
-    planes = TB.pack_bitplanes_uint8(torch.from_numpy(x))
     oh, ow = tplan["out_hw"]
     r_band = band or min(-(-MIN_BAND_PIXELS // ow), oh)
-    y = band_conv(planes, tplan["w_packed"], c_in=3, c_out=c_out, kh=3,
+    y = band_conv(x, tplan["w_packed"], c_in=3, c_out=c_out, kh=3,
                   kw=3, stride=stride, pads=tplan["pads"],
                   out_hw=tplan["out_hw"], nbits=8, r_band=r_band)
     got = fused_words(y, tau, flip, r_band=r_band, chunk=chunk, rng=rng)
@@ -229,8 +227,7 @@ def test_fused_epilogue_model_matches_jnp(hw, c_out, stride, padding, chunk,
 def test_fused_epilogue_model_matches_pallas_interpret():
     rng, x, jplan, tplan, tau, flip = _conv_case(
         ("fused pallas",), (5, 5), 3, 40, 1, "SAME", bsz=1)
-    planes = TB.pack_bitplanes_uint8(torch.from_numpy(x))
-    y = band_conv(planes, tplan["w_packed"], c_in=3, c_out=40, kh=3, kw=3,
+    y = band_conv(x, tplan["w_packed"], c_in=3, c_out=40, kh=3, kw=3,
                   stride=1, pads=tplan["pads"], out_hw=tplan["out_hw"],
                   nbits=8)
     got = fused_words(y, tau, flip, r_band=5, chunk=64, rng=rng)

@@ -87,10 +87,14 @@ def test_xnor_gemm_kernels(dev, m, n, k):
         ref.binary_matmul_bn_sign_packed_ref(a, w, tau, flip, k))
 
 
-def _misaligned(t):
-    """A contiguous copy of ``t`` starting 4 bytes past 16-byte alignment."""
-    flat = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
-    start = next(i for i in range(4) if (flat.data_ptr() + 4 * i) % 16 == 4)
+def _misaligned(t, by=4):
+    """A contiguous copy of ``t`` starting ``by`` bytes past 16-byte
+    alignment (a multiple of its element size)."""
+    size = t.element_size()
+    flat = torch.empty(t.numel() + 16 // size, dtype=t.dtype,
+                       device=t.device)
+    start = next(i for i in range(16 // size)
+                 if (flat.data_ptr() + size * i) % 16 == by)
     out = flat[start:start + t.numel()].view(t.shape)
     out.copy_(t)
     return out
@@ -119,82 +123,142 @@ def test_xnor_gemm_tile_edges(dev, m, n, k, shift):
         ref.binary_matmul_bn_sign_packed_ref(a, w, tau, flip, k))
 
 
+def _image(gen, dev, bsz, hw, c_in, nbits, high=False):
+    """A random uint8 image below 2^nbits, or with ``high`` over all 256
+    values (bits above nbits set, which K1 must ignore)."""
+    top = 256 if high else 2 ** nbits
+    return torch.randint(0, top, (bsz, *hw, c_in), generator=gen,
+                         dtype=torch.uint8).to(dev)
+
+
+def _k1_operands(x, bplan, dev):
+    """K1's operands on the raw image and the plain version's on its bit
+    planes (``binarize.pack_bitplanes_uint8``, the low nbits bits)."""
+    w, r = bplan["w_packed"].to(dev), bplan["rowsum"].to(dev)
+    return (x, w, r), (B.pack_bitplanes_uint8(x, bplan["nbits"]), w, r)
+
+
 # K1's edges, and inputs whose full band and 64 channels' weights exceed a
-# block's shared memory: C_in 256 (chunks of 32 channels), C_in 512 (8
-# channels, a 2-row band) and a 224-wide row at C_in 128 (16 channels, a
+# block's shared memory: C_in 288 (chunks of 32 channels), C_in 768 (8
+# channels, a 2-row band) and a 448-wide row at C_in 128 (16 channels, a
 # 1-row band).
-@pytest.mark.parametrize("hw,c_in,c_out,stride,padding,nbits", [
+K1_EDGES = [
     ((9, 9), 33, 40, 2, "SAME", 1), ((11, 7), 33, 10, 2, "VALID", 8),
     ((9, 9), 3, 40, 2, "SAME", 1), ((13, 5), 3, 136, 2, "VALID", 8),
     ((32, 32), 3, 128, 1, "SAME", 8), ((7, 7), 33, 72, 1, "SAME", 4),
-    ((32, 32), 256, 64, 1, "SAME", 8), ((32, 32), 512, 40, 1, "SAME", 8),
-    ((4, 224), 128, 72, 1, "SAME", 8)])
+    ((32, 32), 288, 64, 1, "SAME", 8), ((32, 32), 768, 40, 1, "SAME", 8),
+    ((4, 448), 128, 72, 1, "SAME", 8)]
+
+
+@pytest.mark.parametrize("hw,c_in,c_out,stride,padding,nbits", K1_EDGES)
 def test_bitplane_conv_kernel_edges(dev, hw, c_in, c_out, stride, padding,
                                     nbits):
     gen = torch.Generator().manual_seed(c_in * c_out + nbits)
     bplan = bconv.make_bitplane_conv_plan(
         _pm1(gen, c_out, 3, 3, c_in), input_hw=hw, stride=stride,
         padding=padding, nbits=nbits)
-    planes = B.pack_bitplanes_uint8(torch.randint(
-        0, 2 ** nbits, (3, *hw, c_in), generator=gen,
-        dtype=torch.uint8).to(dev), nbits)
-    bargs = (planes, bplan["w_packed"].to(dev), bplan["rowsum"].to(dev))
+    kargs, pargs = _k1_operands(_image(gen, dev, 3, hw, c_in, nbits), bplan,
+                                dev)
     geom = dict(kh=3, kw=3, stride=stride, pads=bplan["pads"], c_out=c_out,
                 k_true=bplan["k_true"])
     assert torch.equal(
-        bconv.bitplane_conv2d_packed(*bargs, out_hw=bplan["out_hw"],
+        bconv.bitplane_conv2d_packed(*kargs, out_hw=bplan["out_hw"],
                                      nbits=nbits, **geom),
-        ref.bitplane_conv2d_planes_ref(*bargs, nbits=nbits, **geom))
+        ref.bitplane_conv2d_planes_ref(*pargs, nbits=nbits, **geom))
+
+
+# K1's copy of the band from the image, a byte a thread: rows whose bytes
+# are not whole 16-byte units (C_in 3 at W 9 and 13, C_in 33 at W 7);
+# rows of whole 16-byte units with and without a left halo (C_in 16 SAME,
+# C_in 32 VALID at stride 2), also 1 byte off 16-byte alignment; and
+# nbits 1 and 4 on images with the bits above nbits set, which must read
+# as their low bits.
+@pytest.mark.parametrize("hw,c_in,c_out,stride,padding,nbits,high,shift", [
+    ((9, 9), 3, 40, 1, "SAME", 8, False, False),
+    ((13, 13), 3, 72, 2, "SAME", 8, False, False),
+    ((7, 7), 33, 40, 1, "SAME", 8, False, False),
+    ((8, 8), 16, 40, 1, "SAME", 8, False, False),
+    ((9, 9), 32, 40, 2, "VALID", 8, False, False),
+    ((8, 8), 16, 40, 1, "SAME", 8, False, True),
+    ((9, 9), 32, 40, 2, "VALID", 8, False, True),
+    ((9, 9), 3, 40, 1, "SAME", 1, True, False),
+    ((7, 7), 33, 72, 1, "SAME", 4, True, False),
+    ((8, 8), 16, 40, 1, "SAME", 4, True, False),
+    ((9, 9), 32, 40, 2, "VALID", 1, True, False)])
+def test_bitplane_conv_reads_the_raw_image(dev, hw, c_in, c_out, stride,
+                                           padding, nbits, high, shift):
+    gen = torch.Generator().manual_seed(c_in * c_out + nbits + 7 * stride)
+    bplan = bconv.make_bitplane_conv_plan(
+        _pm1(gen, c_out, 3, 3, c_in), input_hw=hw, stride=stride,
+        padding=padding, nbits=nbits)
+    x = _image(gen, dev, 3, hw, c_in, nbits, high)
+    if shift:
+        x = _misaligned(x, by=1)
+        assert x.data_ptr() % 16 == 1
+    kargs, pargs = _k1_operands(x, bplan, dev)
+    geom = dict(kh=3, kw=3, stride=stride, pads=bplan["pads"], c_out=c_out,
+                k_true=bplan["k_true"], nbits=nbits)
+    y = bconv.bitplane_conv2d_packed(*kargs, out_hw=bplan["out_hw"], **geom)
+    want = ref.bitplane_conv2d_planes_ref(*pargs, **geom)
+    assert torch.equal(y, want)
+    tau, flip = _bn(gen, c_out, 2 ** nbits * int(bplan["k_true"] ** 0.5),
+                    dev)
+    tau[:4] = y[0, 0, 0, :4].float()
+    assert torch.equal(
+        bconv.bitplane_conv2d_bn_sign_packed(*kargs, tau, flip,
+                                             out_hw=bplan["out_hw"], **geom),
+        ref.bn_sign_pack_ref(want, tau, flip))
 
 
 # K1's fused instance (K2's epilogue inside K1) against its plain version
 # and against K2 on K1's int32 output: chunks of 64 channels (the BCNN's
 # first stage; C_out 40, 10, 136, 72 and 33 with tail words; stride 2;
-# VALID; 1 and 4 planes) and of 32 (C_in 256), and a band halved to keep
-# chunks of 32 (C_in 352: the int32 instance takes 8 rows of 16 channels,
+# VALID; 1 and 4 planes) and of 32 (C_in 288), and a band halved to keep
+# chunks of 32 (C_in 448: the int32 instance takes 8 rows of 16 channels,
 # the fused one 4 rows of 32).  Four channels' tau equal one output.
-@pytest.mark.parametrize("hw,c_in,c_out,stride,padding,nbits", [
+K1_FUSED_EDGES = [
     ((32, 32), 3, 128, 1, "SAME", 8), ((9, 9), 33, 40, 2, "SAME", 1),
     ((11, 7), 33, 10, 2, "VALID", 8), ((13, 5), 3, 136, 2, "VALID", 8),
     ((7, 7), 33, 72, 1, "SAME", 4), ((9, 9), 3, 33, 1, "SAME", 8),
-    ((32, 32), 256, 64, 1, "SAME", 8), ((16, 16), 352, 40, 1, "SAME", 8)])
+    ((32, 32), 288, 64, 1, "SAME", 8), ((16, 16), 448, 40, 1, "SAME", 8)]
+
+
+@pytest.mark.parametrize("hw,c_in,c_out,stride,padding,nbits",
+                         K1_FUSED_EDGES)
 def test_bitplane_conv_bn_sign_kernel(dev, hw, c_in, c_out, stride, padding,
                                       nbits):
     gen = torch.Generator().manual_seed(c_in * c_out + nbits + stride)
     bplan = bconv.make_bitplane_conv_plan(
         _pm1(gen, c_out, 3, 3, c_in), input_hw=hw, stride=stride,
         padding=padding, nbits=nbits)
-    planes = B.pack_bitplanes_uint8(torch.randint(
-        0, 2 ** nbits, (3, *hw, c_in), generator=gen,
-        dtype=torch.uint8).to(dev), nbits)
-    bargs = (planes, bplan["w_packed"].to(dev), bplan["rowsum"].to(dev))
+    kargs, pargs = _k1_operands(_image(gen, dev, 3, hw, c_in, nbits), bplan,
+                                dev)
     geom = dict(kh=3, kw=3, stride=stride, pads=bplan["pads"], c_out=c_out,
                 k_true=bplan["k_true"], nbits=nbits)
-    y = bconv.bitplane_conv2d_packed(*bargs, out_hw=bplan["out_hw"], **geom)
+    y = bconv.bitplane_conv2d_packed(*kargs, out_hw=bplan["out_hw"], **geom)
     tau, flip = _bn(gen, c_out, 2 ** nbits * int(bplan["k_true"] ** 0.5),
                     dev)
     tau[:4] = y[0, 0, 0, :4].float()
     got = bconv.bitplane_conv2d_bn_sign_packed(
-        *bargs, tau, flip, out_hw=bplan["out_hw"], **geom)
+        *kargs, tau, flip, out_hw=bplan["out_hw"], **geom)
     assert torch.equal(got, ref.bn_sign_pack_ref(
-        ref.bitplane_conv2d_planes_ref(*bargs, **geom), tau, flip))
+        ref.bitplane_conv2d_planes_ref(*pargs, **geom), tau, flip))
     assert torch.equal(got, fe.bn_sign_pack(y.reshape(-1, c_out), tau, flip)
                        .reshape(got.shape))
 
 
 def test_bitplane_conv_bn_sign_refuses_chunks_below_32(dev):
     """Where 32 channels' weights fit no band, the fused instance raises
-    (the int32 instance serves the shape with chunks of 8)."""
+    (the int32 instance serves the shape with chunks of 16)."""
     hw, c_in, c_out = (32, 32), 512, 40
     gen = torch.Generator().manual_seed(5)
     bplan = bconv.make_bitplane_conv_plan(_pm1(gen, c_out, 3, 3, c_in),
                                           input_hw=hw, nbits=8)
-    planes = B.pack_bitplanes_uint8(
-        torch.zeros((1, *hw, c_in), dtype=torch.uint8, device=dev), 8)
+    x = torch.zeros((1, *hw, c_in), dtype=torch.uint8, device=dev)
     tau, flip = _bn(gen, c_out, 100, dev)
     with pytest.raises(ValueError, match="32 channels' weights"):
         bconv.bitplane_conv2d_bn_sign_packed(
-            planes, bplan["w_packed"].to(dev), bplan["rowsum"].to(dev), tau,
+            x, bplan["w_packed"].to(dev), bplan["rowsum"].to(dev), tau,
             flip, kh=3, kw=3, stride=1, pads=bplan["pads"],
             out_hw=bplan["out_hw"], c_out=c_out, k_true=bplan["k_true"],
             nbits=8)
@@ -204,11 +268,10 @@ def test_bitplane_conv_refuses_what_shared_memory_cannot_hold(dev):
     hw, c_in = (3, 2048), 1024
     bplan = bconv.make_bitplane_conv_plan(
         torch.ones(8, 3, 3, c_in), input_hw=hw, padding="VALID", nbits=8)
-    planes = B.pack_bitplanes_uint8(
-        torch.zeros((1, *hw, c_in), dtype=torch.uint8, device=dev), 8)
+    x = torch.zeros((1, *hw, c_in), dtype=torch.uint8, device=dev)
     with pytest.raises(ValueError, match="shared memory"):
         bconv.bitplane_conv2d_packed(
-            planes, bplan["w_packed"].to(dev), bplan["rowsum"].to(dev),
+            x, bplan["w_packed"].to(dev), bplan["rowsum"].to(dev),
             kh=3, kw=3, stride=1, pads=bplan["pads"],
             out_hw=bplan["out_hw"], c_out=8, k_true=bplan["k_true"],
             nbits=8)
@@ -245,14 +308,12 @@ def test_conv_kernels(dev, hw, c_in, c_out, stride, padding):
     bplan = bconv.make_bitplane_conv_plan(_pm1(gen, c_out, 3, 3, 3),
                                           input_hw=hw, stride=stride,
                                           padding=padding)
-    planes = B.pack_bitplanes_uint8(torch.randint(
-        0, 256, (2, *hw, 3), generator=gen, dtype=torch.uint8).to(dev))
-    bargs = (planes, bplan["w_packed"].to(dev), bplan["rowsum"].to(dev))
+    kargs, pargs = _k1_operands(_image(gen, dev, 2, hw, 3, 8), bplan, dev)
     geom["k_true"] = bplan["k_true"]
     assert torch.equal(
-        bconv.bitplane_conv2d_packed(*bargs, out_hw=bplan["out_hw"],
+        bconv.bitplane_conv2d_packed(*kargs, out_hw=bplan["out_hw"],
                                      nbits=8, **geom),
-        ref.bitplane_conv2d_planes_ref(*bargs, nbits=8, **geom))
+        ref.bitplane_conv2d_planes_ref(*pargs, nbits=8, **geom))
 
 
 @pytest.mark.parametrize("m,k", [(1, 1), (37, 31), (1, 33), (37, 784),
@@ -635,16 +696,15 @@ def test_bitplane_conv_bn_sign_at_shard_widths(dev, c_out):
     gen = torch.Generator().manual_seed(c_out)
     bplan = bconv.make_bitplane_conv_plan(_pm1(gen, c_out, 3, 3, 3),
                                           input_hw=(32, 32))
-    planes = B.pack_bitplanes_uint8(torch.randint(
-        0, 256, (2, 32, 32, 3), generator=gen, dtype=torch.uint8).to(dev))
-    bargs = (planes, bplan["w_packed"].to(dev), bplan["rowsum"].to(dev))
+    kargs, pargs = _k1_operands(_image(gen, dev, 2, (32, 32), 3, 8), bplan,
+                                dev)
     geom = dict(kh=3, kw=3, stride=1, pads=bplan["pads"], c_out=c_out,
                 k_true=bplan["k_true"], nbits=8)
     tau, flip = _bn(gen, c_out, 256 * 9, dev)
     assert torch.equal(
-        bconv.bitplane_conv2d_bn_sign_packed(*bargs, tau, flip,
+        bconv.bitplane_conv2d_bn_sign_packed(*kargs, tau, flip,
                                              out_hw=bplan["out_hw"], **geom),
-        ref.bn_sign_pack_ref(ref.bitplane_conv2d_planes_ref(*bargs, **geom),
+        ref.bn_sign_pack_ref(ref.bitplane_conv2d_planes_ref(*pargs, **geom),
                              tau, flip))
 
 
@@ -951,18 +1011,17 @@ def _op_cases(dev):
              for k, v in bconv.make_bitplane_conv_plan(
                  _pm1(gen, 40, 3, 3, 3), input_hw=(12, 10),
                  nbits=8).items()}
-    planes = B.pack_bitplanes_uint8(torch.randint(
-        0, 256, (2, 12, 10, 3), generator=gen, dtype=torch.uint8).to(dev), 8)
+    image = _image(gen, dev, 2, (12, 10), 3, 8)
     bgeom = [*lib.conv_geom(bplan), 8]
     bkw = lib.geom_kwargs(bgeom)
     cases["bitplane_conv"] = (
-        (planes, bplan["w_packed"], bplan["rowsum"], bgeom),
-        lambda p_, w_, r_, g_: bconv.bitplane_conv2d_packed(
-            p_, w_, r_, nbits=8, **bkw))
+        (image, bplan["w_packed"], bplan["rowsum"], bgeom),
+        lambda x_, w_, r_, g_: bconv.bitplane_conv2d_packed(
+            x_, w_, r_, nbits=8, **bkw))
     cases["bitplane_conv_bn_sign"] = (
-        (planes, bplan["w_packed"], bplan["rowsum"], tau, flip, bgeom),
-        lambda p_, w_, r_, t_, f_, g_: bconv.bitplane_conv2d_bn_sign_packed(
-            p_, w_, r_, t_, f_, nbits=8, **bkw))
+        (image, bplan["w_packed"], bplan["rowsum"], tau, flip, bgeom),
+        lambda x_, w_, r_, t_, f_, g_: bconv.bitplane_conv2d_bn_sign_packed(
+            x_, w_, r_, t_, f_, nbits=8, **bkw))
     qp, kp = words(1, 20, 4, 256), words(1, 20, 2, 256)
     v = torch.randn((1, 20, 2, 256), generator=gen).to(dev)
     cases["binary_attention"] = (
@@ -993,6 +1052,39 @@ def test_each_op_equals_the_direct_wrapper_call(dev):
         assert torch.equal(got, want), name
         est = smem.check_against_card(smem.estimate_call(name, args))
         assert est.registers > 0 and est.fits(), est.breakdown()
+
+
+# K1's shared-memory mirror (``binary_conv.bitplane_estimate``) against
+# its launcher's search (``bitplane_conv_query``), both instances: the
+# BCNN's stage 0 at batch 512, the edge shapes above and the two shapes
+# the launchers refuse, where the query answers kTooLarge.
+K1_QUERY_SHAPES = [(512, (32, 32), 3, 128, 1, "SAME")] + [
+    (3, hw, c_in, c_out, stride, padding)
+    for hw, c_in, c_out, stride, padding, _ in K1_EDGES + K1_FUSED_EDGES] + [
+    (1, (32, 32), 512, 40, 1, "SAME"), (1, (3, 2048), 1024, 8, 1, "VALID")]
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_k1_estimate_equals_the_launchers_query(dev, fused):
+    import ctypes
+    from repro_torch.analysis import smem
+    from repro_torch.kernels import _build
+    lib = _build.load("bitplane_conv", bconv.BITPLANE_ENTRIES)
+    for bsz, hw, c_in, c_out, stride, padding in K1_QUERY_SHAPES:
+        plan = bconv.make_bitplane_conv_plan(
+            torch.ones(c_out, 3, 3, c_in), input_hw=hw, stride=stride,
+            padding=padding)
+        (pt, _), (pl, _) = plan["pads"]
+        est = bconv.bitplane_estimate(bsz, *hw, plan["cw"], c_in, c_out, 3,
+                                      3, stride, pt, pl, *plan["out_hw"], 8,
+                                      fused)
+        if est.fits():
+            smem.check_against_card(est)
+            continue
+        out, name = (ctypes.c_int * 9)(), ctypes.c_char_p()
+        assert lib.bitplane_conv_query(
+            *est.query[2], ctypes.addressof(out),
+            ctypes.addressof(name)) == bconv.BITPLANE_TOO_LARGE, est.route
 
 
 def test_preflight_raises_before_a_launch_on_the_card(dev):

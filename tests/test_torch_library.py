@@ -140,16 +140,15 @@ def test_bitplane_conv_fakes(hw, c_in, c_out, stride, padding):
         padding=padding, nbits=8)
     x = torch.randint(0, 256, (2, *hw, c_in), generator=gen,
                       dtype=torch.uint8)
-    planes = B.pack_bitplanes_uint8(x, 8)
     tau, flip = _bn(gen, c_out)
     geom = [*lib.conv_geom(plan), 8]
     conv = dict(kh=3, kw=3, stride=stride, pads=plan["pads"], c_out=c_out,
                 k_true=plan["k_true"], nbits=8)
-    _same(_fake_out("bitplane_conv", planes, plan["w_packed"],
+    _same(_fake_out("bitplane_conv", x, plan["w_packed"],
                     plan["rowsum"], geom),
           ref.bitplane_conv2d_packed_ref(x, plan["w_packed"],
                                          plan["rowsum"], **conv))
-    _same(_fake_out("bitplane_conv_bn_sign", planes, plan["w_packed"],
+    _same(_fake_out("bitplane_conv_bn_sign", x, plan["w_packed"],
                     plan["rowsum"], tau, flip, geom),
           ref.bitplane_conv2d_bn_sign_packed_ref(
               x, plan["w_packed"], plan["rowsum"], tau, flip, **conv))

@@ -103,8 +103,9 @@ def test_sharded_cells_match_the_references_gathers(reference, committed):
 def test_full_width_cells(committed):
     """``BCNNSpec()`` and ``BMLPSpec()``: ``'auto'`` means K6 (one launch
     for the hidden stack), ``'per_layer'`` one K4-fused a hidden layer;
-    the BCNN's largest intermediate at batch 256 is its int64 bit-plane
-    stack, 537 MB."""
+    K1 reads the raw image, so no bit-plane stack is built and the BCNN's
+    largest intermediate at batch 256 is its first packed pool's words,
+    (256, 16, 16, 4) int32, 1 MB."""
     for batch in PR.FULL_BATCHES:
         auto = [ln["kernel"] for ln in
                 committed[f"bcnn_full/b{batch}/auto"]["launches"]]
@@ -118,8 +119,8 @@ def test_full_width_cells(committed):
         assert mlp == ["bitpack", "xnor_gemm", "bn_sign_pack",
                        "dense_stack", "xnor_gemm"]
     big = committed["bcnn_full/b256/auto"]
-    assert big["max_intermediate_bytes"] == 536870912
-    assert big["max_intermediate_shape"] == [8, 256, 32, 32, 32]
+    assert big["max_intermediate_bytes"] == 1048576
+    assert big["max_intermediate_shape"] == [256, 16, 16, 4]
 
 
 def test_full_width_trace_matches_the_committed_cell(committed):

@@ -21,7 +21,6 @@ from repro.core import binarize as JB
 from repro.kernels import binary_conv as JBC
 from repro.kernels import ops as JOPS
 from repro_torch import convert as CV
-from repro_torch.core import binarize as TB
 from repro_torch.kernels import binary_conv as TBC
 from repro_torch.kernels import binary_matmul as TBM
 
@@ -207,26 +206,32 @@ def u8s8_tile(xs, base, off, ws):
     return out
 
 
-def band_conv(planes, w_packed, *, c_in, c_out, kh, kw, stride, pads,
+def band_conv(x_uint8, w_packed, *, c_in, c_out, kh, kw, stride, pads,
               out_hw, nbits, r_band=None, fragments=False):
     """The kernel's indexing in numpy: per band of R output rows (the
     kernel's full band, or the ``r_band`` it falls back to when shared
-    memory is short), the plane rows decoded to uint8 in a zero-padded
-    band [row][col][c], the depth -> offset table, A gathered at pixel
-    base + offset, B the +-1 weights [channel][tap*C_in + c], 0 past K.
-    The dot is one exact integer product, or with ``fragments`` the
-    kernel's 16-pixel x 8-channel tiles, one :func:`u8s8_tile` per 32
-    depths, pixels past the band at base 0 and channels past C_out on
-    zero weights."""
-    planes = CV.words_to_numpy(planes)
+    memory is short), the image's bytes copied into a zero-padded band
+    [row][col][c] (byte i of band row rb is byte i - pad_left * C_in of
+    image row rb + the band's first, or 0 where either is outside the
+    image), each masked to its low ``nbits`` bits; the depth -> offset
+    table, A gathered at pixel base + offset, B the +-1 weights
+    [channel][tap*C_in + c], 0 past K.  The dot is one exact integer
+    product, or with ``fragments`` the kernel's 16-pixel x 8-channel
+    tiles, one :func:`u8s8_tile` per 32 depths, pixels past the band at
+    base 0 and channels past C_out on zero weights."""
+    img = np.asarray(x_uint8, np.uint8) & np.uint8((1 << nbits) - 1)
     wp = CV.words_to_numpy(w_packed)
-    _, bsz, h, wd, cw = planes.shape
+    bsz, h, wd, _ = img.shape
+    cw = wp.shape[1] // (kh * kw)
     oh, ow = out_hw
     pt, pl = pads[0][0], pads[1][0]
     if r_band is None:
         r_band = min(-(-MIN_BAND_PIXELS // ow), oh)
     rows_b = (r_band - 1) * stride + kh
     wb = (ow - 1) * stride + kw
+    row_bytes, lead, img_bytes = wb * c_in, pl * c_in, wd * c_in
+    i = np.arange(rows_b * row_bytes)
+    rb, o = i // row_bytes, i % row_bytes - lead
     k = kh * kw * c_in
     kpad = -(-k // 32) * 32
     d = np.arange(kpad)
@@ -240,21 +245,12 @@ def band_conv(planes, w_packed, *, c_in, c_out, kh, kw, stride, pads,
     out = np.zeros((bsz, oh, ow, c_out), np.int64)
     for b in range(bsz):
         for oh0 in range(0, oh, r_band):
-            ih0 = oh0 * stride - pt
-            xs = np.zeros((rows_b, wb, c_in), np.int64)
-            for rb in range(rows_b):
-                ih = ih0 + rb
-                if not 0 <= ih < h:
-                    continue
-                for col in range(wb):
-                    iw = col - pl
-                    if 0 <= iw < wd:
-                        cc = np.arange(c_in)
-                        bits = (planes[:nbits, b, ih, iw, cc // 32]
-                                >> (cc % 32)) & 1
-                        xs[rb, col] = (bits << np.arange(nbits)[:, None]
-                                       ).sum(0)
-            xs = xs.reshape(-1)
+            ih = oh0 * stride - pt + rb
+            inside = (ih >= 0) & (ih < h) & (o >= 0) & (o < img_bytes)
+            rows = img[b].reshape(h, img_bytes)
+            xs = np.where(inside, rows[np.clip(ih, 0, h - 1),
+                                       np.clip(o, 0, img_bytes - 1)],
+                          0).astype(np.int64)
             n_px = min(r_band, oh - oh0) * ow
             p = np.arange(-(-n_px // 16) * 16)
             base = np.where(p < n_px, ((p // ow) * stride * wb
@@ -275,10 +271,11 @@ def band_conv(planes, w_packed, *, c_in, c_out, kh, kw, stride, pads,
 
 
 def _band_case(key, hw, c_in, c_out, stride, padding, nbits, **kw):
-    """K1's numpy model and the reference on one seeded input."""
+    """K1's numpy model and the reference on one seeded input, over all 256
+    values: the bits above nbits are set, which both must ignore."""
     rng = _rng(*key, hw, c_in, c_out, stride, padding, nbits)
     w = rng.uniform(-1, 1, (c_out, 3, 3, c_in)).astype(np.float32)
-    x = rng.integers(0, 2 ** nbits, (2, *hw, c_in), dtype=np.uint8)
+    x = rng.integers(0, 256, (2, *hw, c_in), dtype=np.uint8)
     jplan = JBC.make_bitplane_conv_plan(jnp.asarray(w), input_hw=hw,
                                         stride=stride, padding=padding,
                                         nbits=nbits)
@@ -286,8 +283,7 @@ def _band_case(key, hw, c_in, c_out, stride, padding, nbits, **kw):
     tplan = TBC.make_bitplane_conv_plan(torch.from_numpy(w), input_hw=hw,
                                         stride=stride, padding=padding,
                                         nbits=nbits)
-    planes = TB.pack_bitplanes_uint8(torch.from_numpy(x), nbits)
-    got = band_conv(planes, tplan["w_packed"], c_in=c_in, c_out=c_out,
+    got = band_conv(x, tplan["w_packed"], c_in=c_in, c_out=c_out,
                     kh=3, kw=3, stride=stride, pads=tplan["pads"],
                     out_hw=tplan["out_hw"], nbits=nbits, **kw)
     np.testing.assert_array_equal(got, np.asarray(want))

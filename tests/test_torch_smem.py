@@ -97,11 +97,31 @@ def test_k1_search_matches_the_launchers():
     big = dict(bsz=1, h=32, w=32, cw=16, c_in=512, c_out=40, kh=3, kw=3,
                stride=1, pad_top=1, pad_left=1, oh=32, ow=32, nbits=8)
     assert not S.bitplane_estimate(**big, fused=True).fits()
-    assert S.bitplane_estimate(**big, fused=False).fits()
+    assert S.bitplane_estimate(**big, fused=False).route == "band4_chunk16"
+    halved = dict(big, h=16, w=16, cw=14, c_in=448, oh=16, ow=16)
+    assert S.bitplane_estimate(**halved, fused=False).route == \
+        "band8_chunk16"
+    assert S.bitplane_estimate(**halved, fused=True).route == "band4_chunk32"
     hopeless = S.bitplane_estimate(1, 3, 2048, 32, 1024, 8, 3, 3, 1, 0, 0, 1,
                                    2046, 8, False)
     assert hopeless.route == "band1_chunk8" and not hopeless.fits()
 
+
+def test_k1_holds_the_image_band_and_no_planes():
+    """K1 reads the raw uint8 image: its band is rows x columns x C_in
+    bytes, whatever nbits, and no term holds bit planes."""
+    for nbits in (1, 8):
+        est = S.bitplane_estimate(512, 32, 32, 1, 3, 128, 3, 3, 1, 1, 1, 32,
+                                  32, nbits, True)
+        terms = {t.name: t.bytes for t in est.terms}
+        assert set(terms) == {"output_stage", "chunk_weights",
+                              "depth_offsets", "input_band", "tau_flip"}
+        assert terms["input_band"] == 624    # 6 rows x 34 columns x 3 bytes
+        assert est.route == "band4_chunk64" and est.grid == (8, 512, 1)
+    int32 = S.bitplane_estimate(512, 32, 32, 1, 3, 128, 3, 3, 1, 1, 1, 32,
+                                32, 8, False)
+    assert "planes_band" not in {t.name for t in int32.terms}
+    assert "tau_flip" not in {t.name for t in int32.terms}
 
 def test_preflight_raises_with_the_breakdown():
     est = S.dense_stack_estimate(4, 32, 8, 577, True)
@@ -134,7 +154,7 @@ def test_dispatchers_refuse_over_budget_launches_before_launching():
                                          input_hw=(3, 2048),
                                          padding="VALID", nbits=8)
     raw = torch.zeros((1, 3, 2048, 1024), dtype=torch.uint8)
-    with pytest.raises(S.SmemBudgetError, match="planes_band"):
+    with pytest.raises(S.SmemBudgetError, match="input_band"):
         graph.trace(lambda p, a: ops.bitplane_conv2d_packed(
             p, a, backend="cuda"), plan, raw)
     assert ops.launch_counts() == before
@@ -152,7 +172,7 @@ def test_k1_launcher_refusal_carries_the_estimate():
     is counted."""
     sizes = (1, 3, 2048, 32, 1024, 8, 3, 3, 1, 0, 0, 1, 2046, 8, 0)
     before = bconv.bitplane_conv2d_packed.launches
-    with pytest.raises(S.SmemBudgetError, match="planes_band") as err:
+    with pytest.raises(S.SmemBudgetError, match="input_band") as err:
         bconv._bitplane_check(bconv.BITPLANE_TOO_LARGE, "bitplane_conv",
                               sizes, False)
     assert "8 channels' weights of depth 9216" in str(err.value)
